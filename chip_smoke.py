@@ -5,19 +5,30 @@
 
 Phases, each fatal on failure:
   1. the card: name and power limit (nvidia-smi); TF32 off for f32 matmuls
-  2. build every hand-written kernel from csrc/ (one nvcc per source)
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes and a sweep (L 17/128/1024, window 0/100, f32 and
-     bf16), with times of the kernel, the plain version and one PyTorch
-     library call beside the kernel's bound
-  4. the main path: GPT-2 small (GPTConfig.small(), full width, seeded random
-     weights) behind the port's ModelServer, two generate-mode and two
-     logits-mode v1 requests over HTTP, launch counts checked per request,
-     outputs checked against the plain attention path on the card
+  2. build every hand-written kernel from csrc/ (one nvcc per source, all
+     started together)
+  3. the forward kernel against its plain PyTorch version on the card, at
+     the serving path's shapes, the training shape and a sweep (L
+     17/128/1024, window 0/100, f32 and bf16), with times of the kernel, the
+     plain version and one PyTorch library call beside the kernel's bound
+  4. the serving path: GPT-2 small (GPTConfig.small(), full width, seeded
+     random weights) behind the port's ModelServer, two generate-mode and
+     two logits-mode v1 requests over HTTP, launch counts checked per
+     request, outputs checked against the plain attention path on the card
+  5. the three backward kernels (D pre-kernel, dq, dkv; D read and D from
+     O) against the plain backward at (2, 1024, 12, 64) and the training
+     shape (4, 2048, 12, 64), f32 and bf16, causal, window 0/100, pad bias,
+     with their times, bounds, the plain time and SDPA's backward
+  6. the training path: GPT-2 small (full width and depth, seeded random
+     init, f32 parameters, bf16 compute) trained by the port's Trainer.fit
+     at batch 4 x 2048 tokens, launches checked per step, loss finite and
+     falling; then one f32 step's loss and grads through the kernels
+     against the plain attention path, and a checkpoint round trip
 
 The line before last is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
-prints no result.
+{"ok": true, "device": {...}}. Every number is printed beside the card's
+name and power limit. Without a CUDA device it exits nonzero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ import numpy as np
 SEED = 0
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
 LOGITS_BATCH, LOGITS_LEN, LOGITS_PAD = 2, 16, 4
+# the training path: bench.py's gpt2s_flash_2k shape
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 20, 2
 # H100 peaks (NVIDIA data sheet, dense): flops by input type, and HBM bytes/s
 PEAKS = {
     "sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
@@ -49,6 +62,19 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+
+
+def ptxas_summary(report: str) -> str:
+    """Kernels, registers and spills from an nvcc -Xptxas -v report."""
+    import re
+
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                            report))
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{spills} bytes of spill stores")
 
 
 def time_ms(fn, iters: int) -> float:
@@ -68,23 +94,61 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, h, lq, lk, d, dtype, causal, window, peaks):
-    """(bound_ms, bound_by): the larger of the operations this input needs
-    over the type's peak and the bytes it must move over the HBM rate."""
-    if causal:
-        rows = np.arange(lq)
-        seen = rows + 1 if not window else np.minimum(rows + 1, window)
-        pairs = int(np.minimum(seen, lk).sum())
-    else:
-        pairs = lq * lk
-    flops = 4.0 * b * h * d * pairs
-    size = 4 if dtype == "float32" else 2
-    nbytes = (size * b * h * d * (2 * lq + 2 * lk)   # q, o, k, v
-              + size * b * lk + 4 * b * h * lq)      # bias, lse
+def live_pairs(lq, lk, causal, window) -> int:
+    """(query, key) pairs the mask leaves visible: the work this input
+    needs."""
+    if not causal:
+        return lq * lk
+    rows = np.arange(lq)
+    seen = rows + 1 if not window else np.minimum(rows + 1, window)
+    return int(np.minimum(seen, lk).sum())
+
+
+def bound(flops, nbytes, dtype, peaks):
+    """(bound_ms, bound_by): the larger of the operations over the type's
+    peak and the bytes over the HBM rate."""
     t_ops = flops / peaks[dtype]
     t_bytes = nbytes / peaks["bytes"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(b, h, lq, lk, d, dtype, causal, window, peaks):
+    """The forward's bound: 4·D operations per live pair (q·kᵀ, p·v); q, k,
+    v, bias read and O, lse written once."""
+    flops = 4.0 * b * h * d * live_pairs(lq, lk, causal, window)
+    size = 4 if dtype == "float32" else 2
+    nbytes = (size * b * h * d * (2 * lq + 2 * lk)   # q, o, k, v
+              + size * b * lk + 4 * b * h * lq)      # bias, lse
+    return bound(flops, nbytes, dtype, peaks)
+
+
+def backward_bounds(b, h, lq, lk, d, dtype, causal, window, peaks,
+                    from_o: bool, want_dbias: bool) -> dict:
+    """Each backward kernel's bound. dd: 2 operations per element of dO,
+    reads dO and O, writes D. dq: 6·D per live pair (q·kᵀ, dO·vᵀ, ds·k),
+    reads q, k, v, dO, bias, lse and D (O when D is computed from it, plus
+    its 2·D per row), writes dq. dkv: 8·D per live pair (q·kᵀ, dO·vᵀ, pᵀ·dO,
+    dsᵀ·q), the same reads, writes dk, dv and dbias_bh when wanted."""
+    size = 4 if dtype == "float32" else 2
+    pairs = b * h * live_pairs(lq, lk, causal, window)
+    rows = b * h * lq
+    q_side = size * rows * d                   # one (B, Lq, H, D) tensor
+    k_side = size * b * h * lk * d             # one (B, Lk, H, D) tensor
+    stats = size * b * lk + 4 * rows            # bias, lse
+    d_in = q_side if from_o else 4 * rows      # O, or D
+    d_ops = 2.0 * rows * d if from_o else 0.0
+    return {
+        "flash_bwd_dd": bound(2.0 * rows * d, 2 * q_side + 4 * rows, dtype,
+                              peaks),
+        "flash_bwd_dq": bound(6.0 * d * pairs + d_ops,
+                              3 * q_side + 2 * k_side + stats + d_in,
+                              dtype, peaks),
+        "flash_bwd_dkv": bound(8.0 * d * pairs + d_ops,
+                               2 * q_side + 4 * k_side + stats + d_in
+                               + (4 * b * h * lk if want_dbias else 0),
+                               dtype, peaks),
+    }
 
 
 def make_attention_inputs(b, l, h, d, dtype, pad, gen):
@@ -114,9 +178,9 @@ def sdpa_call(q, k, v, bias, causal, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
-def phase_kernels(peaks) -> dict:
+def phase_kernels(peaks, card: str) -> dict:
     """Kernel vs plain version on the card. Returns the record of the
-    serving path's prefill shape."""
+    training path's shape."""
     import torch
 
     from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
@@ -124,9 +188,10 @@ def phase_kernels(peaks) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
-    cases = [  # (tag, B, L, window, dtype, pad): the serving path first
+    cases = [  # (tag, B, L, window, dtype, pad): the main paths first
         ("prefill", GEN_BATCH, GEN_PROMPT, 0, "float32", 0),
         ("logits", LOGITS_BATCH, LOGITS_LEN, 0, "float32", LOGITS_PAD),
+        ("train", TRAIN_BATCH, TRAIN_LEN, 0, "bfloat16", 0),
     ]
     for l in (17, 128, 1024):
         for window in (0, 100):
@@ -152,7 +217,7 @@ def phase_kernels(peaks) -> dict:
             lambda: flash_forward_plain(q, k, v, bias, 128, True, window),
             iters)
         lib_ms = None
-        if tag == "prefill" or l == 1024:
+        if tag != "logits" and (tag != "sweep" or l == 1024):
             lib_ms = time_ms(sdpa_call(q, k, v, bias, True, window), iters)
         bound_ms, bound_by = attention_bound(b, h, l, l, d, dt, True, window,
                                              peaks)
@@ -160,7 +225,7 @@ def phase_kernels(peaks) -> dict:
               f"err_o={err_o:.3e} err_lse={err_l:.3e} (tol {tol[dt]:g}) "
               f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
               f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.5f}'} "
-              f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.5f} ({bound_by}) [{card}]", flush=True)
         if not ok:
             raise AssertionError(
                 f"flash_fwd disagrees with the plain version: {tag} B={b} "
@@ -169,7 +234,303 @@ def phase_kernels(peaks) -> dict:
             "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         }
-    return records[("prefill", GEN_PROMPT, 0, "float32")]
+    return records[("train", TRAIN_LEN, 0, "bfloat16")]
+
+
+def sdpa_backward_call(q, k, v, bias, g, causal, window):
+    """SDPA forward+backward on the same function (yardstick only), and its
+    forward alone: the backward's time is the difference."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd = sdpa_call(*leaves, bias, causal, window)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, g.transpose(1, 2))
+
+    def fwd_only():
+        with torch.no_grad():
+            fwd()
+
+    return fwd_bwd, fwd_only
+
+
+def phase_backward(peaks, card: str) -> dict:
+    """The backward kernels against the plain backward on the card. Returns
+    each kernel's record at the training shape in bf16 (window 0, D read
+    from the pre-kernel)."""
+    import torch
+
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+    from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        flash_backward_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    h, d = 12, 64
+    print("phase 5: flash backward kernels vs plain version (B, L, H=12, "
+          "D=64, causal, pad bias on the last keys of the last row; "
+          "tolerance: f32 1e-4 of max(1, the grad's largest |value|), bf16 "
+          "4 bf16 ulps of it)", flush=True)
+    records = {}
+    for b, l in ((2, 1024), (TRAIN_BATCH, TRAIN_LEN)):
+        for dt in ("float32", "bfloat16"):
+            for window in (0, 100):
+                dtype = getattr(torch, dt)
+                q, k, v, bias = make_attention_inputs(b, l, h, d, dtype,
+                                                      16, gen)
+                g = torch.randn((b, l, h, d), generator=gen,
+                                device="cuda").to(dtype)
+                o, lse = flash_fwd(q, k, v, bias, True, window)
+                want = flash_backward_plain(q, k, v, bias, o, lse, g, 128,
+                                            True, window)
+                dd = kb.flash_bwd_dd(o, g)
+                runs = {"ddpre": dd, "loop2": None}
+                errs = {"flash_bwd_dd": (dd - (g.float() * o.float()).sum(
+                    -1).transpose(1, 2)).abs().max().item()}
+                scales = {"flash_bwd_dd": 1.0}
+                for form, dd_in in runs.items():
+                    dq = kb.flash_bwd_dq(q, k, v, bias, o, g, lse, dd_in,
+                                         True, window)
+                    dk, dv, dbh = kb.flash_bwd_dkv(q, k, v, bias, o, g, lse,
+                                                   dd_in, True, window)
+                    dbias = dbh.view(b, h, l).sum(1)[:, None, None]
+                    torch.cuda.synchronize()
+                    for name, got, ref in (
+                            ("flash_bwd_dq", dq, want[0]),
+                            ("flash_bwd_dkv", dk, want[1]),
+                            ("flash_bwd_dkv", dv, want[2]),
+                            ("flash_bwd_dkv", dbias, want[3])):
+                        ref = ref.float()
+                        scale = max(1.0, ref.abs().max().item())
+                        err = (got.float() - ref).abs().max().item()
+                        key = f"{name}/{form}"
+                        if err / scale > errs.get(key, 0.0) / scales.get(
+                                key, 1.0):
+                            errs[key], scales[key] = err, scale
+                rel_tol = 1e-4 if dt == "float32" else 4 * 2.0 ** -8
+                bad = {n: e for n, e in errs.items()
+                       if not math.isfinite(e) or e > rel_tol * scales[n]}
+                iters = 10 if l >= TRAIN_LEN else 20
+                t_dd = time_ms(lambda: kb.flash_bwd_dd(o, g), iters)
+                times = {"flash_bwd_dd": t_dd}
+                for form, dd_in in runs.items():
+                    times[f"flash_bwd_dq/{form}"] = time_ms(
+                        lambda: kb.flash_bwd_dq(q, k, v, bias, o, g, lse,
+                                                dd_in, True, window), iters)
+                    times[f"flash_bwd_dkv/{form}"] = time_ms(
+                        lambda: kb.flash_bwd_dkv(q, k, v, bias, o, g, lse,
+                                                 dd_in, True, window,
+                                                 False), iters)
+                plain_dd = time_ms(
+                    lambda: torch.einsum("blhd,blhd->bhl", g.float(),
+                                         o.float()), iters)
+                plain_ms = time_ms(
+                    lambda: flash_backward_plain(q, k, v, bias, o, lse, g,
+                                                 128, True, window, False),
+                    max(3, iters // 4))
+                lib_dd = time_ms(lambda: (g * o).sum(-1), iters)
+                fwd_bwd, fwd_only = sdpa_backward_call(q, k, v, bias, g,
+                                                       True, window)
+                lib_bwd = time_ms(fwd_bwd, iters) - time_ms(fwd_only, iters)
+                for form, from_o in (("ddpre", False), ("loop2", True)):
+                    bounds = backward_bounds(b, h, l, l, d, dt, True, window,
+                                             peaks, from_o, False)
+                    for name in ("flash_bwd_dd", "flash_bwd_dq",
+                                 "flash_bwd_dkv"):
+                        if name == "flash_bwd_dd" and from_o:
+                            continue  # loop2 computes D inside dq and dkv
+                        key = (name if name == "flash_bwd_dd"
+                               else f"{name}/{form}")
+                        bound_ms, bound_by = bounds[name]
+                        rec = {
+                            "max_abs_err": errs[key], "ms": times[key],
+                            "plain_ms": (plain_dd if name == "flash_bwd_dd"
+                                         else plain_ms),
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": (lib_dd if name == "flash_bwd_dd"
+                                           else lib_bwd),
+                        }
+                        records[(name, form, b, l, dt, window)] = rec
+                        print(f"  {key:20s} B={b} L={l:5d} window={window:3d}"
+                              f" {dt:9s} err={errs[key]:.3e} (scale "
+                              f"{scales[key]:.3g}) ms={times[key]:.5f} "
+                              f"bound_ms={bound_ms:.5f} ({bound_by}) "
+                              f"plain_ms={rec['plain_ms']:.5f} library_ms="
+                              f"{rec['library_ms']:.5f} [{card}]",
+                              flush=True)
+                print(f"  B={b} L={l} window={window} {dt}: dq+dkv "
+                      f"{times['flash_bwd_dq/ddpre'] + times['flash_bwd_dkv/ddpre']:.5f}"
+                      f" ms (+dd {t_dd:.5f}), loop2 "
+                      f"{times['flash_bwd_dq/loop2'] + times['flash_bwd_dkv/loop2']:.5f}"
+                      f" ms; SDPA backward {lib_bwd:.5f} ms; plain backward "
+                      f"{plain_ms:.5f} ms [{card}]", flush=True)
+                if bad:
+                    raise AssertionError(
+                        f"backward kernels disagree with the plain version "
+                        f"at B={b} L={l} window={window} {dt}: {bad}")
+    return {name: records[(name, "ddpre", TRAIN_BATCH, TRAIN_LEN,
+                           "bfloat16", 0)]
+            for name in ("flash_bwd_dd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def phase_train(card: str) -> tuple[dict, float]:
+    """GPT-2 small trained by the port's Trainer.fit on the card. Returns
+    each kernel's launches over the fit and the median step time (ms)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kubeflow_tpu_torch.kernels import KERNELS
+    from kubeflow_tpu_torch.models.gpt import (
+        GPTConfig,
+        GPTLM,
+        causal_lm_eval_metrics,
+        causal_lm_loss,
+    )
+    from kubeflow_tpu_torch.train import metrics
+    from kubeflow_tpu_torch.train.checkpoint import Checkpointer
+    from kubeflow_tpu_torch.train.data import synthetic_lm_dataset
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = GPTConfig.small(attention="flash", dropout_rate=0.0,
+                          max_len=TRAIN_LEN)
+    t0 = time.perf_counter()
+    ds = synthetic_lm_dataset(n_train=TRAIN_BATCH * TRAIN_STEPS,
+                              n_test=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                              vocab_size=cfg.vocab_size, seed=SEED)
+    model = GPTLM(cfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED))
+    trainer = Trainer(model, TrainerConfig(
+        batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, learning_rate=3e-4,
+        warmup_steps=TRAIN_WARMUP, log_every_steps=1, seed=SEED),
+        loss_fn=causal_lm_loss, eval_metrics_fn=causal_lm_eval_metrics)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 6: GPT-2 small, {n_params} params "
+          f"({sorted({str(p.dtype) for p in model.parameters()})}), compute "
+          f"{trainer.compute_dtype}, batch {TRAIN_BATCH} x {TRAIN_LEN} "
+          f"tokens, {TRAIN_STEPS} steps, set up in "
+          f"{time.perf_counter() - t0:.2f}s [{card}]", flush=True)
+    if trainer.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"AUTO resolved to {trainer.compute_dtype}")
+
+    step_ends = []
+    real_step = trainer.train_step
+
+    def timed_step(state, batch):
+        out = real_step(state, batch)
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+        return out
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    for kern in KERNELS.values():
+        kern.launches = 0      # the training path's run starts here
+    t_fit = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state, final = trainer.fit(ds)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lines = [metrics.parse_line(x) for x in log.getvalue().splitlines()]
+    losses = [x["loss"] for x in lines if "loss" in x]
+    steady = np.diff(step_ends[2:])          # past the first two steps
+    step_ms = float(np.median(steady)) * 1e3
+    print(f"  fit: {fit_s:.2f}s; losses {' '.join(f'{x:.4f}' for x in losses)}"
+          f"; final eval loss {final['final_loss']:.4f} [{card}]", flush=True)
+    print(f"  step time {step_ms:.2f} ms (median of steps 4..{TRAIN_STEPS}, "
+          f"min {steady.min() * 1e3:.2f}, max {steady.max() * 1e3:.2f}); "
+          f"{TRAIN_BATCH * TRAIN_LEN / step_ms * 1e3:.1f} tokens/s; first "
+          f"step {(step_ends[0] - t_fit) * 1e3:.1f} ms; peak memory "
+          f"{peak:.2f} GiB; launches {launches} [{card}]", flush=True)
+    n_eval = 2 * cfg.num_layers   # the epoch's eval and the final eval
+    want = {"flash_fwd": cfg.num_layers * TRAIN_STEPS + n_eval,
+            **{n: cfg.num_layers * TRAIN_STEPS
+               for n in ("flash_bwd_dd", "flash_bwd_dq", "flash_bwd_dkv")}}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not run clean: losses {losses}")
+
+    # ---- checkpoint round trip on the card
+    saved = {k: v.clone() for k, v in state.model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(tmp).save(state.step, state)
+        other = GPTLM(cfg, device="cuda").init_weights(
+            torch.Generator().manual_seed(SEED + 7))
+        fresh = Trainer(other, TrainerConfig(batch_size=TRAIN_BATCH),
+                        loss_fn=causal_lm_loss)
+        step, restored = Checkpointer(tmp).restore_latest(fresh.init_state())
+    same = all(torch.equal(v, saved[k])
+               for k, v in restored.model.state_dict().items())
+    print(f"  checkpoint round trip: step {step}, params bit-equal {same} "
+          f"[{card}]", flush=True)
+    if step != TRAIN_STEPS or not same:
+        raise AssertionError("checkpoint round trip changed the params")
+    del state, restored, fresh, other, trainer, model
+    torch.cuda.empty_cache()
+    phase_grad_check(cfg, ds, card)
+    return launches, step_ms
+
+
+def phase_grad_check(cfg, ds, card: str) -> None:
+    """One f32 train_step at full width and depth through the kernels
+    (attention="flash") against the plain attention path (dense), same
+    params and batch. Tolerance: loss 1e-5 relative; each parameter's grad
+    within 1e-3 of its largest |value| (sums over 2048 keys in other
+    orders), that value floored at 1e-3 of the largest |grad| of the model:
+    the key projection's bias has a gradient of 0 in exact arithmetic
+    (softmax ignores a shift shared by a query's scores), so only rounding
+    noise is left to compare there."""
+    import dataclasses
+
+    import torch
+
+    from kubeflow_tpu_torch.kernels import KERNELS
+    from kubeflow_tpu_torch.models.gpt import GPTLM, causal_lm_loss
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    runs = {}
+    sd = None
+    for attention in ("flash", "dense"):
+        model = GPTLM(dataclasses.replace(cfg, attention=attention),
+                      device="cuda")
+        if sd is None:
+            model.init_weights(torch.Generator().manual_seed(SEED + 3))
+            sd = model.state_dict()
+        else:
+            model.load_state_dict(sd)
+        trainer = Trainer(model, TrainerConfig(
+            batch_size=TRAIN_BATCH, compute_dtype="float32",
+            learning_rate=0.0), loss_fn=causal_lm_loss)
+        before = KERNELS["flash_bwd_dq"].launches
+        state, m = trainer.train_step(
+            trainer.init_state(),
+            (ds.x_train[:TRAIN_BATCH], ds.y_train[:TRAIN_BATCH]))
+        torch.cuda.synchronize()
+        runs[attention] = (float(m["loss"]), {
+            n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            KERNELS["flash_bwd_dq"].launches - before)
+        del state, trainer, model
+        torch.cuda.empty_cache()
+    (loss_k, grads_k, n_k), (loss_p, grads_p, n_p) = runs["flash"], \
+        runs["dense"]
+    top = max(g.abs().max().item() for g in grads_p.values())
+    worst = max(((grads_k[n] - g).abs().max().item()
+                 / max(g.abs().max().item(), 1e-3 * top), n)
+                for n, g in grads_p.items())
+    print(f"  f32 grad check, flash kernels vs dense: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; worst grad error {worst[0]:.3e} of its scale "
+          f"({worst[1]}); dq launches {n_k} vs {n_p} [{card}]", flush=True)
+    if (abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst[0] > 1e-3
+            or n_k != cfg.num_layers or n_p != 0):
+        raise AssertionError(f"flash grads disagree with dense: {worst}")
 
 
 def post(url: str, body: dict) -> tuple[int, dict, float]:
@@ -219,7 +580,7 @@ def phase_serve(card: str) -> int:
         save_predictor(f"{tmp}/logits", "gpt-lm", sd, logit_ids[0], **kw)
         print(f"phase 4: GPT-2 small, {n_params} params, seeded random "
               f"weights, model dirs written in "
-              f"{time.perf_counter() - t0:.2f}s", flush=True)
+              f"{time.perf_counter() - t0:.2f}s [{card}]", flush=True)
         models = [TorchModel("gpt2", f"{tmp}/gen", device="cuda"),
                   TorchModel("gpt2-logits", f"{tmp}/logits", device="cuda")]
         srv = ModelServer(models, port=0, host="127.0.0.1")
@@ -230,7 +591,7 @@ def phase_serve(card: str) -> int:
             load_launches = FLASH_FWD.launches
             print(f"  server up at {srv.url} in "
                   f"{time.perf_counter() - t0:.2f}s (load + warmup; "
-                  f"{load_launches} launches)", flush=True)
+                  f"{load_launches} launches) [{card}]", flush=True)
             if load_launches != 2 * n_layers:
                 raise AssertionError(
                     f"warmup launched flash_fwd {load_launches} times, "
@@ -274,7 +635,8 @@ def phase_serve(card: str) -> int:
             with torch.inference_mode():
                 want = dense_lm(x).cpu().numpy()
             err = float(np.abs(got - want).max())
-            print(f"  logits response vs plain path: max abs err {err:.3e}")
+            print(f"  logits response vs plain path: max abs err {err:.3e}"
+                  f" [{card}]")
             if err > 1e-3:
                 raise AssertionError(f"served logits off by {err}")
             continue
@@ -299,7 +661,7 @@ def phase_serve(card: str) -> int:
             gap = (forced.max(-1).values - chosen).max().item()
         print(f"  prefill logits kernel vs plain path: max abs err "
               f"{err:.3e}; teacher-forced plain path: chosen token at most "
-              f"{gap:.3e} below the step max")
+              f"{gap:.3e} below the step max [{card}]")
         if err > 1e-3 or gap > 1e-3:
             raise AssertionError(
                 f"generate disagrees with the plain path: prefill {err}, "
@@ -336,7 +698,7 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 2
     from kubeflow_tpu_torch.kernels import KERNELS, build_all
-    from kubeflow_tpu_torch.kernels.build import BUILD_DIR
+    from kubeflow_tpu_torch.kernels.build import report_path, sources
 
     card = card_line()
     print(card, flush=True)
@@ -348,23 +710,41 @@ def main() -> int:
 
     took = build_all()
     print(f"phase 2: built {sorted(took)} in "
-          f"{max(took.values(), default=0.0):.2f}s", flush=True)
-    for name in KERNELS:
-        report = BUILD_DIR / f"{name}.nvcc.txt"
+          f"{max(took.values(), default=0.0):.2f}s [{card}]", flush=True)
+    for src in sources():
+        report = report_path(src)
         if report.exists():
-            print(report.read_text().strip())
+            print(f"  {src}: {ptxas_summary(report.read_text())}")
 
-    flash = phase_kernels(peaks)
-    launches = phase_serve(card)
+    timings = {"flash_fwd": phase_kernels(peaks, card)}
+    serve_launches = phase_serve(card)
+    print(f"  serving path: flash_fwd launches {serve_launches} [{card}]",
+          flush=True)
+    timings.update(phase_backward(peaks, card))
+    launches, step_ms = phase_train(card)
+    per_step = launches["flash_bwd_dq"] // TRAIN_STEPS  # one per layer
+    attn_ms = per_step * sum(t["ms"] for t in timings.values())
+    # SDPA's backward stands beside dq and dkv together: count it once
+    lib_ms = per_step * sum(timings[n]["library_ms"] for n in (
+        "flash_fwd", "flash_bwd_dd", "flash_bwd_dq"))
+    print(f"where the training step goes: the four kernels take "
+          f"{attn_ms:.2f} ms of the {step_ms:.2f} ms step "
+          f"({100 * attn_ms / step_ms:.1f}%) at their phase 3/5 times "
+          f"x {per_step} launches each; SDPA forward + backward and "
+          f"(dO*O).sum(-1) would take {lib_ms:.2f} ms. Share of the bound: "
+          + ", ".join(f"{n} {100 * t['bound_ms'] / t['ms']:.2f}%"
+                      for n, t in timings.items()) + f" [{card}]",
+          flush=True)
 
     record = {"kernels": [{
-        "name": "flash_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "kubeflow_tpu_torch/csrc/" + KERNELS["flash_fwd"].source,
-        "replaces": KERNELS["flash_fwd"].replaces,
-        "launches": launches,
-        **flash,
-    }]}
+        "source": "kubeflow_tpu_torch/csrc/" + KERNELS[name].source,
+        "replaces": KERNELS[name].replaces,
+        "launches": launches[name],
+        **timings[name],
+    } for name in ("flash_fwd", "flash_bwd_dd", "flash_bwd_dq",
+                   "flash_bwd_dkv")]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -65,8 +65,10 @@ def _param_map(cfg: GPTConfig):
 
 def gpt_params_from_flax(flat: dict[str, np.ndarray],
                          cfg: GPTConfig) -> dict[str, torch.Tensor]:
-    """Flax flat params -> a state_dict for ``GPTLM(cfg)`` (CPU tensors in
-    the arrays' dtype). Raises on missing, unexpected or misshapen keys."""
+    """Flax flat params -> a state_dict for ``GPTLM(cfg)``: float32 CPU
+    tensors, as both packages keep their parameters whatever the compute
+    dtype, so float32 params cross without loss. Raises on missing,
+    unexpected or misshapen keys."""
     table = _param_map(cfg)
     want = {fk for fk, _, _, _ in table}
     if set(flat) != want:
@@ -83,14 +85,14 @@ def gpt_params_from_flax(flat: dict[str, np.ndarray],
             a = a.reshape(math.prod(shape[:n_in]), -1).T
         else:
             a = a.reshape(-1) if fk.endswith("/bias") else a
-        sd[tk] = torch.from_numpy(np.array(a))  # a writable copy
+        sd[tk] = torch.from_numpy(np.array(a, dtype=np.float32))  # a copy
     return sd
 
 
 def flax_params_from_gpt(state_dict: dict[str, torch.Tensor],
                          cfg: GPTConfig) -> dict[str, np.ndarray]:
     """The inverse: a ``GPTLM(cfg)`` state_dict -> flax flat params, as
-    float32 numpy arrays (numpy has no bfloat16)."""
+    float32 numpy arrays."""
     flat = {}
     for fk, tk, shape, n_in in _param_map(cfg):
         a = state_dict[tk].detach().to("cpu", torch.float32).numpy()

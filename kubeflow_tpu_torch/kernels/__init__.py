@@ -2,8 +2,9 @@
 
 Each kernel has a ``Kernel`` record (name, CUDA source, the TPU kernel it
 replaces, a launch count) in ``KERNELS``; its wrapper launches it on CUDA
-tensors and its plain PyTorch version lives beside its caller (for
-``flash_fwd``: ``parallel/ring_attention.py``).
+tensors and its plain PyTorch version lives beside its caller (for the
+flash-attention kernels, forward and backward:
+``parallel/ring_attention.py``).
 """
 
 from kubeflow_tpu_torch.kernels.build import KERNELS, Kernel, build_all

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each source in ``kubeflow_tpu_torch/csrc/`` is compiled on first use into a
+Each source in ``kubeflow_tpu_torch/csrc/`` is compiled on first use into one
 shared library with a plain C interface, under ``kubeflow_tpu_torch/_build/``
 (listed in .gitignore), named by a hash of the source and the flags so an
-edited source is rebuilt. The target is ``sm_90a`` (Hopper). No build error
-is swallowed: a failed compile raises with nvcc's output.
+edited source is rebuilt. Kernels that share a source (the three backward
+kernels of ``flash_bwd.cu``) share its library. The target is ``sm_90a``
+(Hopper). No build error is swallowed: a failed compile raises with nvcc's
+output.
 """
 
 from __future__ import annotations
@@ -51,6 +53,15 @@ KERNELS: dict[str, Kernel] = {
     "flash_fwd": Kernel(
         "flash_fwd", "flash_fwd.cu",
         "kubeflow_tpu/parallel/ring_attention.py:584"),
+    "flash_bwd_dd": Kernel(
+        "flash_bwd_dd", "flash_bwd.cu",
+        "kubeflow_tpu/parallel/ring_attention.py:1279"),
+    "flash_bwd_dq": Kernel(
+        "flash_bwd_dq", "flash_bwd.cu",
+        "kubeflow_tpu/parallel/ring_attention.py:748"),
+    "flash_bwd_dkv": Kernel(
+        "flash_bwd_dkv", "flash_bwd.cu",
+        "kubeflow_tpu/parallel/ring_attention.py:786"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -69,51 +80,64 @@ def _nvcc() -> str:
         "CUDA kernels are built on the machine with the card")
 
 
-def library_path(name: str) -> Path:
-    k = KERNELS[name]
+def sources(names: list[str] | None = None) -> list[str]:
+    """The distinct sources of the named kernels (all by default)."""
+    names = list(KERNELS) if names is None else names
+    return sorted({KERNELS[n].source for n in names})
+
+
+def library_path(source: str) -> Path:
+    """The library built from one source under csrc/."""
     digest = hashlib.sha256(
-        k.source_path.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (_CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+
+
+def report_path(source: str) -> Path:
+    """nvcc's output (the ptxas report: registers, shared memory, spills)
+    for one source, kept beside its library."""
+    return BUILD_DIR / f"{Path(source).stem}.nvcc.txt"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, float]:
-    """Compile every missing library, one nvcc per source, all started
-    together. Returns {name: seconds} for the ones built. The ptxas report
-    (registers, shared memory, spills) is kept beside each library."""
-    names = list(KERNELS) if names is None else names
+    """Compile every missing library of the named kernels, one nvcc per
+    source, all started together. Returns {source: seconds} for the ones
+    built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [s for s in sources(names) if not library_path(s).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
-    for n in todo:
-        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(KERNELS[n].source_path)],
+    for src in todo:
+        tmp = library_path(src).with_suffix(f".{os.getpid()}.tmp")
+        procs[src] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     took, failed = {}, []
-    for n, (tmp, proc) in procs.items():
+    for src, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        took[n] = time.perf_counter() - t0
-        (BUILD_DIR / f"{n}.nvcc.txt").write_text(out)
+        took[src] = time.perf_counter() - t0
+        report_path(src).write_text(out)
         if proc.returncode != 0:
-            failed.append(f"{n} (nvcc exit {proc.returncode}):\n{out}")
+            failed.append(f"{src} (nvcc exit {proc.returncode}):\n{out}")
             continue
-        os.replace(tmp, library_path(n))
+        os.replace(tmp, library_path(src))
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return took
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if it is missing."""
+    """The shared library of the named kernel, built first if it is
+    missing. Kernels of one source get the same handle."""
+    source = KERNELS[name].source
     with _load_lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(source)
         if lib is None:
             build_all([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            _loaded[name] = lib
+            lib = ctypes.CDLL(str(library_path(source)))
+            _loaded[source] = lib
         return lib

@@ -1,0 +1,206 @@
+"""Wrappers of the hand-written flash-attention backward (csrc/flash_bwd.cu).
+
+Three kernels, one library:
+
+  flash_bwd_dd   D = Σ_d dO∘O                       -> (B, H, Lq) f32
+  flash_bwd_dq   dq from q, k, v, bias, dO, lse and D (or O)
+  flash_bwd_dkv  dk, dv and the per-head dbias row from the same
+
+Inputs are the public layout: q, o, dO (B, Lq, H, D), k, v (B, Lk, H, D),
+one dtype (float32 or bfloat16), read by stride with a unit stride on D (so
+dO may come as autograd hands it over); bias (B, 1, 1, Lk) of the same
+dtype, contiguous; lse and D (B, H, Lq) float32, contiguous. dq, dk and dv
+come back contiguous in the input dtype, dbias per (b·h, key) in float32.
+Every launch is on the current stream and does not synchronise. The plain
+PyTorch version of the same functions is
+``parallel.ring_attention.flash_backward_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from kubeflow_tpu_torch.kernels.build import KERNELS, load
+
+FLASH_BWD_DD = KERNELS["flash_bwd_dd"]
+FLASH_BWD_DQ = KERNELS["flash_bwd_dq"]
+FLASH_BWD_DKV = KERNELS["flash_bwd_dkv"]
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+class _BwdArgs(ctypes.Structure):
+    """``BwdArgs`` of csrc/flash_bwd.cu, field for field."""
+
+    _fields_ = (
+        [(n, _p) for n in ("q", "k", "v", "bias", "o", "dout", "lse", "dd",
+                           "dq", "dk", "dv", "dbias", "dd_out")]
+        + [(n, _ll * 3) for n in ("sq", "sk", "sv", "so", "sdo")]
+        + [(n, _i) for n in ("B", "H", "Lq", "Lk", "D", "dtype", "causal",
+                             "window")]
+        + [("scale", ctypes.c_float)])
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """Build (at first use), load and declare the C entry points."""
+    lib = load("flash_bwd_dq")
+    args = ctypes.POINTER(_BwdArgs)
+    lib.kft_flash_bwd_dd.argtypes = [args, _p]
+    lib.kft_flash_bwd_dd.restype = _i
+    for fn in (lib.kft_flash_bwd_dq, lib.kft_flash_bwd_dkv):
+        fn.argtypes = [args, _i, _p]
+        fn.restype = _i
+    lib.kft_cuda_error_string.argtypes = [_i]
+    lib.kft_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _strides(name: str, t: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, position, head) element strides; D's must be 1."""
+    if t.stride(3) != 1 and t.shape[3] != 1:
+        raise ValueError(f"flash backward: {name} has stride {t.stride(3)} "
+                         "on head_dim; the kernels read it with stride 1")
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _args(q, k, v, bias, o, do, lse, dd, causal: bool,
+          window: int) -> _BwdArgs:
+    """Check every input the kernels read and fill their argument block."""
+    if window and not causal:
+        raise ValueError("attention window requires causal=True")
+    if window < 0:
+        raise ValueError(f"window {window} must be >= 0")
+    named = [("q", q), ("k", k), ("v", v), ("bias", bias), ("o", o),
+             ("dO", do), ("lse", lse)] + ([("D", dd)] if dd is not None
+                                          else [])
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"flash backward: {name} is on {t.device}, "
+                             "not CUDA")
+        if t.device != q.device:
+            raise ValueError(f"flash backward: {name} on {t.device}, q on "
+                             f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash backward takes float32 or bfloat16, not "
+                        f"{q.dtype}")
+    for name, t in (("k", k), ("v", v), ("bias", bias), ("o", o),
+                    ("dO", do)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash backward: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash backward: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+        raise ValueError(f"flash backward: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    for name, t in (("o", o), ("dO", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"flash backward: {name} {tuple(t.shape)} is "
+                             f"not q's {tuple(q.shape)}")
+    if tuple(bias.shape) != (b, 1, 1, lk) or not bias.is_contiguous():
+        raise ValueError(f"flash backward: bias {tuple(bias.shape)} is not a "
+                         f"contiguous {(b, 1, 1, lk)}")
+    for name, t in (("lse", lse), ("D", dd)):
+        if t is None:
+            continue
+        if (tuple(t.shape) != (b, h, lq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"flash backward: {name} must be a contiguous "
+                             f"float32 {(b, h, lq)}, not {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash backward: head_dim {d} not in "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    if lq < 1 or lk < 1:
+        raise ValueError(f"flash backward: empty sequence (Lq {lq}, Lk {lk})")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"flash backward: B*H = {b * h} > {_MAX_GRID_Y}")
+    return _BwdArgs(
+        q=_ptr(q), k=_ptr(k), v=_ptr(v), bias=_ptr(bias), o=_ptr(o),
+        dout=_ptr(do), lse=_ptr(lse), dd=_ptr(dd),
+        sq=(_ll * 3)(*_strides("q", q)), sk=(_ll * 3)(*_strides("k", k)),
+        sv=(_ll * 3)(*_strides("v", v)), so=(_ll * 3)(*_strides("o", o)),
+        sdo=(_ll * 3)(*_strides("dO", do)),
+        B=b, H=h, Lq=lq, Lk=lk, D=d, dtype=_DTYPES[q.dtype],
+        causal=int(causal), window=int(window), scale=1.0 / math.sqrt(d))
+
+
+def _launch(lib, fn, kernel, device, *call_args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*call_args, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel.name} launch failed: CUDA error {err} "
+            f"({lib.kft_cuda_error_string(err).decode()})")
+    kernel.count_launch()
+
+
+def flash_bwd_dd(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = Σ_d dO∘O in float32, (B, H, Lq)."""
+    for name, t in (("o", o), ("dO", do)):
+        if not t.is_cuda or t.device != o.device:
+            raise ValueError(f"flash_bwd_dd: {name} is on {t.device}, not "
+                             "the CUDA device of o")
+    if o.dtype not in _DTYPES or do.dtype != o.dtype:
+        raise TypeError(f"flash_bwd_dd takes o and dO of one dtype, float32 "
+                        f"or bfloat16, not {o.dtype} and {do.dtype}")
+    if o.ndim != 4 or do.shape != o.shape:
+        raise ValueError(f"flash_bwd_dd: o {tuple(o.shape)}, dO "
+                         f"{tuple(do.shape)}")
+    b, lq, h, d = o.shape
+    dd = torch.empty((b, h, lq), dtype=torch.float32, device=o.device)
+    a = _BwdArgs(o=_ptr(o), dout=_ptr(do), dd_out=_ptr(dd),
+                 so=(_ll * 3)(*_strides("o", o)),
+                 sdo=(_ll * 3)(*_strides("dO", do)),
+                 B=b, H=h, Lq=lq, D=d, dtype=_DTYPES[o.dtype])
+    lib = _lib()
+    _launch(lib, lib.kft_flash_bwd_dd, FLASH_BWD_DD, o.device,
+            ctypes.byref(a))
+    return dd
+
+
+def flash_bwd_dq(q, k, v, bias, o, do, lse, dd, causal: bool,
+                 window: int = 0) -> torch.Tensor:
+    """dq. With ``dd`` None, D is computed per tile from ``o`` (the loop2
+    form); otherwise ``dd`` is D and ``o`` is not read."""
+    a = _args(q, k, v, bias, o, do, lse, dd, causal, window)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    a.dq = _ptr(dq)
+    lib = _lib()
+    _launch(lib, lib.kft_flash_bwd_dq, FLASH_BWD_DQ, q.device,
+            ctypes.byref(a), int(dd is None))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, bias, o, do, lse, dd, causal: bool,
+                  window: int = 0, want_dbias: bool = True
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(dk, dv, dbias_bh (B·H, Lk) float32 or None). With ``dd`` None, D is
+    computed per tile from ``o`` (the loop2 form)."""
+    a = _args(q, k, v, bias, o, do, lse, dd, causal, window)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dbias = (torch.empty((q.shape[0] * q.shape[2], k.shape[1]),
+                         dtype=torch.float32, device=q.device)
+             if want_dbias else None)
+    a.dk, a.dv, a.dbias = _ptr(dk), _ptr(dv), _ptr(dbias)
+    lib = _lib()
+    _launch(lib, lib.kft_flash_bwd_dkv, FLASH_BWD_DKV, q.device,
+            ctypes.byref(a), int(dd is None))
+    return dk, dv, dbias

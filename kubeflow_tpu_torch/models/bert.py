@@ -17,11 +17,25 @@ from torch import nn
 
 
 class VocabEmbed(nn.Embedding):
-    """Embedding table (num_embeddings, features): lookup, and ``attend``
-    (x @ tableᵀ) for a weight-tied output head."""
+    """flax ``nn.Embed(dtype=compute_dtype)``: a float32 table
+    (num_embeddings, features), looked up and returned in the compute
+    dtype, and ``attend`` (x @ tableᵀ, both in the compute dtype) for a
+    weight-tied output head."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 compute_dtype: torch.dtype = torch.float32,
+                 device: torch.device | None = None):
+        super().__init__(num_embeddings, features, device=device,
+                         dtype=torch.float32)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        # gather, then cast: the same values as casting the whole table
+        return super().forward(ids).to(self.compute_dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.to(x.dtype).T
+        dt = self.compute_dtype
+        return x.to(dt) @ self.weight.to(dt).T
 
 
 def dense_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,

@@ -3,9 +3,15 @@
 
 Pre-LN transformer decoder (GPT-2 shape), learned OR rotary positions,
 optional grouped-query attention (num_kv_heads), sliding-window attention,
-LayerNorm/GELU or RMSNorm/SwiGLU, tied or untied head. Inference only in
-this slice: no dropout, no remat, and the flash path refuses gradients
-until its backward kernels are ported with the training slice.
+LayerNorm/GELU or RMSNorm/SwiGLU, tied or untied head; inference and
+training (``train=True``: residual, embedding and dense-attention dropout
+drawn from seeds of an explicit generator, ``remat`` per block).
+
+Parameters are float32 whatever ``cfg.dtype``, as flax keeps them
+(``param_dtype``); each layer casts its weight and its input to the compute
+dtype ``cfg.dtype`` at use, as ``nn.Dense(dtype=...)`` and
+``nn.Embed(dtype=...)`` do, and the norms take their statistics in float32
+and return the compute dtype.
 
 Decoding keeps the JAX package's static-shape cache: one (B, C, KVH, D)
 buffer per layer written at a per-row index and attended under a position
@@ -15,12 +21,16 @@ one), which is what lets a decode step allocate nothing.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import itertools
 import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models.bert import VocabEmbed, _resolve_attention
 from kubeflow_tpu_torch.parallel.rope import apply_rope
@@ -48,8 +58,8 @@ class GPTConfig:
     attention_window: int = 0
     mlp_dim: int = 3072
     max_len: int = 1024
-    dropout_rate: float = 0.1   # kept for config parity; inference ignores it
-    dtype: str = "float32"      # float32 | bfloat16
+    dropout_rate: float = 0.1   # applied only with train=True
+    dtype: str = "float32"      # compute dtype: float32 | bfloat16
     attention: str = "dense"    # dense | flash (ring | ulysses: later slice)
     attention_block: int = 128
     norm: str = "layernorm"     # layernorm | rmsnorm
@@ -152,12 +162,34 @@ class GPTConfig:
         return GPTConfig(**d)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate); the identity without a generator or at rate
+    0. The mask is drawn from ``generator`` on x's device."""
+    if generator is None or not rate:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+def _generator(seed: int | None, device: torch.device):
+    """A generator on ``device`` seeded with ``seed``, or None. Made anew
+    inside each block, so a block recomputed under remat draws its masks
+    again from the same seed."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def causal_dense_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
                            block=None, window: int = 0):
     """Reference causal softmax attention (numerics baseline). window > 0
-    adds sliding-window masking: query i sees keys in (i - window, i]."""
-    if dropout_rate:
-        raise NotImplementedError("attention dropout is a training feature")
+    adds sliding-window masking: query i sees keys in (i - window, i].
+    With a generator (``dropout_rng``) and dropout_rate > 0 the attention
+    probabilities are dropped out, as in the JAX package."""
     s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(q.shape[-1])
     if bias is not None:
         s = s + bias
@@ -169,18 +201,37 @@ def causal_dense_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
         mask = mask & (rows - cols < window)
     s = torch.where(mask[None, None], s.float(), -1e9)
     probs = torch.softmax(s, dim=-1).to(q.dtype)
+    probs = dropout(probs, dropout_rate, dropout_rng)
     return torch.einsum("bhlm,bmhd->blhd", probs, v)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=compute_dtype)``: float32 parameters; the input,
+    the weight and the bias are cast to the compute dtype at use."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 compute_dtype: torch.dtype, device: torch.device):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=torch.float32)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class DecoderNorm(nn.Module):
     """The block norm: LayerNorm (GPT-2) or scale-only RMSNorm (Llama),
-    computed in f32 and returned in the input dtype, as flax does."""
+    computed in f32 and returned in the compute dtype, as flax's
+    ``nn.LayerNorm(dtype=...)`` does; float32 parameters."""
 
-    def __init__(self, c: GPTConfig, **factory):
+    def __init__(self, c: GPTConfig, device: torch.device):
         super().__init__()
         self.kind, self.eps = c.norm, c.norm_eps
-        self.weight = nn.Parameter(torch.ones(c.hidden_size, **factory))
-        self.bias = (nn.Parameter(torch.zeros(c.hidden_size, **factory))
+        self.compute_dtype = c.torch_dtype
+        self.weight = nn.Parameter(torch.ones(c.hidden_size, device=device))
+        self.bias = (nn.Parameter(torch.zeros(c.hidden_size, device=device))
                      if c.norm == "layernorm" and c.use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -192,7 +243,7 @@ class DecoderNorm(nn.Module):
             y = F.layer_norm(
                 xf, xf.shape[-1:], self.weight.float(),
                 None if self.bias is None else self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        return y.to(self.compute_dtype)
 
 
 @dataclass
@@ -210,20 +261,20 @@ class KVCache:
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, c: GPTConfig, **factory):
+    def __init__(self, c: GPTConfig, device: torch.device):
         super().__init__()
         self.cfg = c
         self.head_dim = c.hidden_size // c.num_heads
         self.kv_heads = c.num_kv_heads or c.num_heads
-        hd = self.head_dim
-        self.query = nn.Linear(c.hidden_size, c.num_heads * hd,
-                               bias=c.use_bias, **factory)
-        self.key = nn.Linear(c.hidden_size, self.kv_heads * hd,
-                             bias=c.use_bias, **factory)
-        self.value = nn.Linear(c.hidden_size, self.kv_heads * hd,
-                               bias=c.use_bias, **factory)
-        self.attn_out = nn.Linear(c.num_heads * hd, c.hidden_size,
-                                  bias=c.use_bias, **factory)
+        hd, dt = self.head_dim, c.torch_dtype
+        self.query = Dense(c.hidden_size, c.num_heads * hd, c.use_bias, dt,
+                           device)
+        self.key = Dense(c.hidden_size, self.kv_heads * hd, c.use_bias, dt,
+                         device)
+        self.value = Dense(c.hidden_size, self.kv_heads * hd, c.use_bias, dt,
+                           device)
+        self.attn_out = Dense(c.num_heads * hd, c.hidden_size, c.use_bias,
+                              dt, device)
         # dense is the causal reference below; other kinds resolve (and
         # refuse the unported ones) when the model is built
         self.attn_fn = (None if c.attention == "dense"
@@ -237,18 +288,20 @@ class CausalSelfAttention(nn.Module):
         return (k.repeat_interleave(group, dim=2),
                 v.repeat_interleave(group, dim=2))
 
-    def _attend(self, q, k, v, bias):
+    def _attend(self, q, k, v, bias, dropout_rng=None):
         c = self.cfg
         k, v = self._repeat_kv(k, v)
         if self.attn_fn is None:
-            return causal_dense_attention(q, k, v, bias,
-                                          window=c.attention_window)
+            return causal_dense_attention(
+                q, k, v, bias, dropout_rng=dropout_rng,
+                dropout_rate=c.dropout_rate if dropout_rng is not None
+                else 0.0, window=c.attention_window)
         kw = {"window": c.attention_window} if c.attention_window else {}
         return self.attn_fn(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
                             block=c.attention_block, causal=True, **kw)
 
     def forward(self, x, bias, cache: KVCache | None = None, layer: int = 0,
-                prefill: bool = False):
+                prefill: bool = False, dropout_rng=None):
         c = self.cfg
         b, l, _ = x.shape
         q = self.query(x).view(b, l, c.num_heads, self.head_dim)
@@ -261,7 +314,7 @@ class CausalSelfAttention(nn.Module):
                 pos = torch.arange(l, device=x.device)
                 q = apply_rope(q, pos, c.rope_theta)
                 k = apply_rope(k, pos, c.rope_theta)
-            y = self._attend(q, k, v, bias)
+            y = self._attend(q, k, v, bias, dropout_rng)
         return self.attn_out(y.reshape(b, l, c.num_heads * self.head_dim))
 
     def _cached_attention(self, q, k, v, cache: KVCache, layer: int,
@@ -340,29 +393,35 @@ class CausalSelfAttention(nn.Module):
 class GPTBlock(nn.Module):
     """Pre-LN decoder block (GPT-2 residual structure)."""
 
-    def __init__(self, c: GPTConfig, **factory):
+    def __init__(self, c: GPTConfig, device: torch.device):
         super().__init__()
         self.cfg = c
-        self.ln_attn = DecoderNorm(c, **factory)
-        self.attention = CausalSelfAttention(c, **factory)
-        self.ln_mlp = DecoderNorm(c, **factory)
+        dt = c.torch_dtype
+        self.ln_attn = DecoderNorm(c, device)
+        self.attention = CausalSelfAttention(c, device)
+        self.ln_mlp = DecoderNorm(c, device)
         if c.activation == "swiglu":
-            self.mlp_gate = nn.Linear(c.hidden_size, c.mlp_dim,
-                                      bias=c.use_bias, **factory)
-        self.mlp_up = nn.Linear(c.hidden_size, c.mlp_dim, bias=c.use_bias,
-                                **factory)
-        self.mlp_down = nn.Linear(c.mlp_dim, c.hidden_size, bias=c.use_bias,
-                                  **factory)
+            self.mlp_gate = Dense(c.hidden_size, c.mlp_dim, c.use_bias, dt,
+                                  device)
+        self.mlp_up = Dense(c.hidden_size, c.mlp_dim, c.use_bias, dt, device)
+        self.mlp_down = Dense(c.mlp_dim, c.hidden_size, c.use_bias, dt,
+                              device)
 
     def forward(self, x, bias, cache: KVCache | None = None, layer: int = 0,
-                prefill: bool = False):
-        x = x + self.attention(self.ln_attn(x), bias, cache, layer, prefill)
+                prefill: bool = False, seed: int | None = None):
+        """seed (training with dropout): the block's masks are drawn from a
+        generator seeded with it — dense attention's probabilities', the
+        attention output's and the MLP output's, in that order."""
+        c = self.cfg
+        gen = _generator(seed, x.device)
+        y = self.attention(self.ln_attn(x), bias, cache, layer, prefill, gen)
+        x = x + dropout(y, c.dropout_rate, gen)
         h = self.ln_mlp(x)
-        if self.cfg.activation == "swiglu":
+        if c.activation == "swiglu":
             h = F.silu(self.mlp_gate(h)) * self.mlp_up(h)
         else:
             h = F.gelu(self.mlp_up(h), approximate="tanh")  # flax nn.gelu
-        return x + self.mlp_down(h)
+        return x + dropout(self.mlp_down(h), c.dropout_rate, gen)
 
 
 class GPTLM(nn.Module):
@@ -370,8 +429,13 @@ class GPTLM(nn.Module):
 
     forward(input_ids (B, L)) -> (B, L, vocab) f32 logits; pad positions
     carry a -1e9 additive bias so they are never attended to. With a
-    ``cache`` it runs one decode pass (see ``generate``).
+    ``cache`` it runs one decode pass (see ``generate``); with
+    ``train=True`` it applies dropout, seeded from ``generator``.
     """
+
+    #: the Trainer's AUTO compute dtype on the card (its counterpart in the
+    #: JAX package: PREFERRED_COMPUTE_DTYPE = jnp.bfloat16)
+    PREFERRED_COMPUTE_DTYPE = "bfloat16"
 
     def __init__(self, cfg: GPTConfig, pad_token_id: int = 0,
                  device: str | torch.device = "cuda"):
@@ -380,28 +444,40 @@ class GPTLM(nn.Module):
             raise NotImplementedError(
                 "moe_experts > 0: the MoE decoder is ported with the "
                 "parallelism slice (ROADMAP Queue A item 8)")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is a training feature; it comes with the training "
-                "slice (ROADMAP Queue A item 1)")
         self.cfg = cfg
         self.pad_token_id = pad_token_id
-        factory = {"device": select_device(device), "dtype": cfg.torch_dtype}
-        self.token_embed = VocabEmbed(cfg.vocab_size, cfg.hidden_size,
-                                      **factory)
+        dev, dt = select_device(device), cfg.torch_dtype
+        self.token_embed = VocabEmbed(cfg.vocab_size, cfg.hidden_size, dt,
+                                      dev)
         if cfg.position_embedding == "learned":
             self.position_embed = VocabEmbed(cfg.max_len, cfg.hidden_size,
-                                             **factory)
+                                             dt, dev)
         self.layers = nn.ModuleList(
-            GPTBlock(cfg, **factory) for _ in range(cfg.num_layers))
-        self.ln_final = DecoderNorm(cfg, **factory)
+            GPTBlock(cfg, dev) for _ in range(cfg.num_layers))
+        self.ln_final = DecoderNorm(cfg, dev)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False, **factory)
+            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, False, dt,
+                                 dev)
 
     @property
     def device(self) -> torch.device:
         return self.token_embed.weight.device
+
+    def with_compute_dtype(self, dtype: str) -> "GPTLM":
+        """This model computing in ``dtype``: a module that shares this
+        one's parameters (the same float32 tensors, so training either
+        trains both) and casts to ``dtype`` at use — the counterpart of
+        flax's ``model.clone(cfg=replace(cfg, dtype=...))``."""
+        cfg = dataclasses.replace(self.cfg, dtype=dtype)
+        shared = {id(t): t for t in itertools.chain(self.parameters(),
+                                                    self.buffers())}
+        clone = copy.deepcopy(self, shared)
+        for m in clone.modules():
+            if hasattr(m, "cfg"):
+                m.cfg = cfg
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = cfg.torch_dtype
+        return clone
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator,
@@ -432,9 +508,23 @@ class GPTLM(nn.Module):
             index=torch.zeros((batch,), dtype=torch.int64, device=self.device))
 
     def forward(self, input_ids: torch.Tensor, cache: KVCache | None = None,
-                prefill: bool = False) -> torch.Tensor:
+                prefill: bool = False, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """train=True applies dropout at ``cfg.dropout_rate`` (embedding,
+        each block's attention and MLP outputs, and dense attention's
+        probabilities); its masks come from seeds drawn from ``generator``
+        (a CPU torch.Generator), one per block and one for the embedding.
+        With ``cfg.remat`` each block is recomputed in the backward
+        (torch.utils.checkpoint); the decode path is never wrapped."""
         c = self.cfg
         l = input_ids.shape[1]
+        seeds = [None] * (c.num_layers + 1)
+        if train and c.dropout_rate:
+            if generator is None:
+                raise ValueError(
+                    "train=True with dropout_rate > 0 needs a generator")
+            seeds = torch.randint(0, 2**62, (c.num_layers + 1,),
+                                  generator=generator).tolist()
         x = self.token_embed(input_ids)
         if cache is not None:
             # positions continue from each row's cache index; masking is
@@ -447,8 +537,13 @@ class GPTLM(nn.Module):
             bias = torch.where(mask[:, None, None, :], 0.0, -1e9).to(x.dtype)
         if c.position_embedding == "learned":
             x = x + self.position_embed(pos)
+        x = dropout(x, c.dropout_rate, _generator(seeds[0], x.device))
         for i, block in enumerate(self.layers):
-            x = block(x, bias, cache, i, prefill)
+            if c.remat and cache is None:
+                x = checkpoint(block, x, bias, None, i, False, seeds[i + 1],
+                               use_reentrant=False)
+            else:
+                x = block(x, bias, cache, i, prefill, seeds[i + 1])
         if cache is not None:
             cache.index += l
         x = self.ln_final(x)
@@ -457,6 +552,35 @@ class GPTLM(nn.Module):
         else:
             logits = self.lm_head(x)
         return logits.float()
+
+
+def causal_lm_loss(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy; labels == input_ids (the shift happens
+    here), pad labels (0) are masked out of the mean."""
+    per_tok, w = _shifted_token_loss(logits, labels)
+    return (per_tok * w).sum() / w.sum().clamp_min(1.0)
+
+
+def causal_lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-example (next-token loss, next-token accuracy), each (B,) — the
+    eval twin of causal_lm_loss, shifted the same way (Trainer
+    eval_metrics_fn contract)."""
+    per_tok, w = _shifted_token_loss(logits, labels)
+    denom = w.sum(-1).clamp_min(1.0)
+    hit = (logits[:, :-1].argmax(-1) == labels[:, 1:].long()).float()
+    return (per_tok * w).sum(-1) / denom, (hit * w).sum(-1) / denom
+
+
+def _shifted_token_loss(logits, labels):
+    """(per-token cross entropy (B, L-1) of position t predicting label
+    t+1, its weight: 1 where that label is not the pad id 0)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    per_tok = F.cross_entropy(
+        shift_logits.reshape(-1, shift_logits.shape[-1]),
+        shift_labels.reshape(-1), reduction="none").view(shift_labels.shape)
+    return per_tok, (shift_labels != 0).float()
 
 
 def eos_id_array(eos_token_id, device=None) -> torch.Tensor | None:

@@ -1,0 +1,225 @@
+"""In-memory datasets and the host input pipeline — own copy of the parts of
+``kubeflow_tpu/train/data.py`` the Trainer uses.
+
+Batches are host numpy, made from a seed exactly as the JAX package makes
+them (``synthetic_lm_dataset`` and ``batches`` give bit-identical arrays),
+and moved to the model's device at the step: pinned host memory and
+``non_blocking`` copies on a card, so the copy of the next batch overlaps the
+current step.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from dataclasses import dataclass
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+
+@dataclass
+class Dataset:
+    x_train: np.ndarray
+    y_train: np.ndarray
+    x_test: np.ndarray
+    y_test: np.ndarray
+    num_classes: int
+
+    @property
+    def input_shape(self) -> tuple[int, ...]:
+        return self.x_train.shape[1:]
+
+
+def synthetic_lm_dataset(
+    n_train: int = 512,
+    n_test: int = 128,
+    seq_len: int = 128,
+    vocab_size: int = 512,
+    seed: int = 0,
+    noise: float = 0.1,
+) -> Dataset:
+    """Causal-LM set with learnable structure: a noisy affine token chain
+    (next = (a·tok + b) mod (V-1) + 1), so next-token loss is reducible.
+    Labels ARE the inputs — models.gpt.causal_lm_loss shifts internally."""
+    rng = np.random.RandomState(seed)
+    a, b = 31, 17  # coprime with vocab-1 keeps the chain full-period-ish
+
+    def make(n: int) -> tuple[np.ndarray, np.ndarray]:
+        x = np.zeros((n, seq_len), np.int32)
+        x[:, 0] = rng.randint(1, vocab_size, size=n)
+        for t in range(1, seq_len):
+            nxt = (x[:, t - 1] * a + b) % (vocab_size - 1) + 1
+            flip = rng.rand(n) < noise
+            nxt[flip] = rng.randint(1, vocab_size, size=flip.sum())
+            x[:, t] = nxt
+        return x, x.copy()
+
+    x_tr, y_tr = make(n_train)
+    x_te, y_te = make(n_test)
+    return Dataset(x_tr, y_tr, x_te, y_te, num_classes=vocab_size)
+
+
+def batches(
+    x: np.ndarray,
+    y: np.ndarray,
+    batch_size: int,
+    *,
+    seed: int | None = None,
+    drop_remainder: bool = True,
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """One epoch of (x, y) minibatches; static shapes when drop_remainder."""
+    n = len(x)
+    idx = np.arange(n)
+    if seed is not None:
+        np.random.RandomState(seed).shuffle(idx)
+    stop = (n // batch_size) * batch_size if drop_remainder else n
+    for i in range(0, stop, batch_size):
+        sl = idx[i : i + batch_size]
+        yield x[sl], y[sl]
+
+
+def steps_per_epoch(n: int, batch_size: int) -> int:
+    return n // batch_size
+
+
+def to_device(batch, device: torch.device):
+    """A tuple of host arrays as tensors on ``device``: on a card through
+    pinned memory with non_blocking copies, on the CPU as views."""
+    device = torch.device(device)
+    out = []
+    for a in batch:
+        t = torch.as_tensor(a)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out.append(t)
+    return tuple(out)
+
+
+def prefetch_to_device(it: Iterator, device: torch.device,
+                       size: int = 2) -> Iterator:
+    """Double-buffering host->device prefetch: the copy of the next batch
+    is enqueued before the current one is handed over, so it overlaps the
+    step (``size=2`` is classic double buffering)."""
+    buf: deque = deque()
+    for b in it:
+        buf.append(to_device(b, device))
+        if len(buf) >= size:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
+
+
+class _LoaderStop(Exception):
+    """Internal: consumer closed while the producer was blocked."""
+
+
+class AsyncLoader:
+    """Background-thread host input pipeline: batch assembly and the copy
+    to the device off the step critical path.
+
+    Pulls items from `src` on a worker thread, applies `transform` (the
+    host work — e.g. ``to_device``, whose copies are non_blocking, so the
+    transfer also starts ahead of consumption), and hands results over a
+    bounded queue. Contract:
+
+      - iteration order and content are EXACTLY `transform(x) for x in
+        src` — the thread moves work, never semantics;
+      - a producer-side exception is re-raised on the CONSUMING thread at
+        the position it occurred: never swallowed;
+      - `close()` (or exhaustion) joins the worker — an early-exiting
+        consumer leaks no thread; idempotent, safe from `finally`.
+    """
+
+    def __init__(
+        self,
+        src: Iterator,
+        transform: Callable | None = None,
+        size: int = 2,
+        name: str = "train.loader",
+    ):
+        self._src = iter(src)
+        self._transform = transform
+        self._size = max(1, size)
+        self._mu = threading.Lock()
+        self._not_empty = threading.Condition(self._mu)
+        self._not_full = threading.Condition(self._mu)
+        self._buf: list = []          # bounded by _size
+        self._done = False            # producer exhausted src
+        self._stopped = False         # consumer closed
+        self._exc: BaseException | None = None
+        self._thread = threading.Thread(
+            target=self._run, name=f"kftpu-{name}", daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------ producer
+
+    def _run(self) -> None:
+        try:
+            self._produce()
+        except _LoaderStop:
+            # consumer closed early — normal shutdown; still mark done so
+            # a straggling next() can never block on a dead producer
+            with self._mu:
+                self._done = True
+                self._not_empty.notify_all()
+        except BaseException as e:  # noqa: BLE001 — carried to the consumer
+            with self._mu:
+                self._exc = e
+                self._done = True
+                self._not_empty.notify_all()
+        else:
+            with self._mu:
+                self._done = True
+                self._not_empty.notify_all()
+
+    def _produce(self) -> None:
+        for item in self._src:
+            out = self._transform(item) if self._transform else item
+            with self._mu:
+                while len(self._buf) >= self._size and not self._stopped:
+                    self._not_full.wait(timeout=0.1)
+                if self._stopped:
+                    raise _LoaderStop
+                self._buf.append(out)
+                self._not_empty.notify()
+
+    # ------------------------------------------------------------ consumer
+
+    def __iter__(self) -> "AsyncLoader":
+        return self
+
+    def __next__(self):
+        with self._mu:
+            while not self._buf and not self._done:
+                self._not_empty.wait(timeout=0.1)
+            if self._buf:
+                out = self._buf.pop(0)
+                self._not_full.notify()
+                return out
+            exc = self._exc
+            self._exc = None
+            if exc is not None:
+                raise exc  # the producer's failure, on OUR thread
+            raise StopIteration
+
+    def close(self) -> None:
+        """Stop the producer and JOIN its thread (no daemon leak); safe to
+        call repeatedly and after exhaustion. The bounded buffer is
+        dropped — a closing consumer wants out, not the backlog (a
+        straggling next() gets StopIteration, never a stale pre-close
+        batch)."""
+        with self._mu:
+            self._stopped = True
+            self._buf.clear()
+            self._not_full.notify_all()
+            self._not_empty.notify_all()
+        self._thread.join(timeout=30.0)
+
+    def __enter__(self) -> "AsyncLoader":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False

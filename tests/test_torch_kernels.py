@@ -52,3 +52,82 @@ def test_kernel_matches_plain_on_card(dtype, tol):
         x = torch.zeros((1, 4, 1, 48), device="cuda", dtype=dtype)
         flash_fwd(x, x, x, torch.zeros((1, 1, 1, 4), device="cuda",
                                        dtype=dtype), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_on_card(dtype):
+    """flash_bwd_dd, flash_bwd_dq and flash_bwd_dkv (both D forms) against
+    flash_backward_plain. Tolerance: 1e-4 plus, of the grad's largest
+    magnitude, 1e-4 in f32 (sums in another order) or four bf16 ulps in
+    bf16 (p and ds are rounded to bf16 before their products on both sides,
+    and an f32 difference in the last bit can round them one ulp apart)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+    from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    counters = (kb.FLASH_BWD_DD, kb.FLASH_BWD_DQ, kb.FLASH_BWD_DKV)
+
+    def close(name, got, want, case):
+        want = want.float()
+        rel = 1e-4 if dtype == torch.float32 else 4 * 2.0 ** -8
+        tol = 1e-4 + rel * want.abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol, (name, case, err, tol)
+
+    for d in (16, 32, 64, 128):
+        for lq, lk, causal, window in ((1, 1, True, 0), (70, 70, True, 0),
+                                       (65, 130, False, 0),
+                                       (130, 65, False, 0),
+                                       (200, 200, True, 33),
+                                       (150, 200, True, 100)):
+            q = torch.randn((2, lq, 3, d), generator=gen, device="cuda")
+            k, v = (torch.randn((2, lk, 3, d), generator=gen, device="cuda")
+                    for _ in range(2))
+            g = torch.randn((2, lq, 3, d), generator=gen, device="cuda")
+            bias = 0.3 * torch.randn((2, 1, 1, lk), generator=gen,
+                                     device="cuda")
+            bias[1, ..., lk - lk // 10:] = -1e9  # key 0 stays visible
+            q, k, v, g, bias = (t.to(dtype) for t in (q, k, v, g, bias))
+            o, lse = flash_fwd(q, k, v, bias, causal, window)
+            # dO as autograd may hand it over: a strided view, unit D stride
+            g_view = g.transpose(1, 2).contiguous().transpose(1, 2)
+            want = tra.flash_backward_plain(q, k, v, bias, o, lse, g, 64,
+                                            causal, window)
+            case = (d, lq, lk, causal, window)
+            before = [c.launches for c in counters]
+            dd = kb.flash_bwd_dd(o, g_view)
+            dd_want = (g.float() * o.float()).sum(-1).transpose(1, 2)
+            assert (dd - dd_want).abs().max().item() <= (
+                1e-5 * (1 + dd_want.abs().max().item())), case
+            for form, dd_in in (("ddpre", dd), ("loop2", None)):
+                for want_dbias in (True, False):
+                    dq = kb.flash_bwd_dq(q, k, v, bias, o, g_view, lse,
+                                         dd_in, causal, window)
+                    dk, dv, dbh = kb.flash_bwd_dkv(
+                        q, k, v, bias, o, g_view, lse, dd_in, causal,
+                        window, want_dbias)
+                    torch.cuda.synchronize()
+                    for name, got, w in (("dq", dq, want[0]),
+                                         ("dk", dk, want[1]),
+                                         ("dv", dv, want[2])):
+                        assert got.dtype == dtype and got.shape == w.shape
+                        close(name, got, w, case + (form,))
+                    if want_dbias:
+                        dbias = dbh.view(2, 3, lk).sum(1)[:, None, None]
+                        close("dbias", dbias, want[3], case + (form,))
+                    else:
+                        assert dbh is None
+            assert [c.launches for c in counters] == [
+                before[0] + 1, before[1] + 4, before[2] + 4]
+    with pytest.raises(ValueError, match="stride"):
+        x = torch.zeros((1, 4, 1, 32), device="cuda", dtype=dtype)
+        lse = torch.zeros((1, 1, 4), device="cuda")
+        strided = torch.zeros((1, 4, 1, 64), device="cuda",
+                              dtype=dtype)[..., ::2]
+        kb.flash_bwd_dq(x, x, x, torch.zeros((1, 1, 1, 4), device="cuda",
+                                            dtype=dtype),
+                        x, strided, lse, lse, True)
