@@ -18,12 +18,21 @@ Phases, each fatal on failure:
   5. the three backward kernels (D pre-kernel, dq, dkv; D read and D from
      O) against the plain backward at (2, 1024, 12, 64) and the training
      shape (4, 2048, 12, 64), f32 and bf16, causal, window 0/100, pad bias,
-     with their times, bounds, the plain time and SDPA's backward
+     with their times, bounds, the plain time and SDPA's backward; besides
+     the max-abs limit, every block of one batch row, head and 64 positions
+     must agree within TILE_TOL of its own norm, so a wrong tile of small
+     grads fails too; dq and dkv called twice at the training shape must
+     agree bit for bit. dq and dkv compute on the tensor cores in bf16 and
+     by f32 FMA in f32 (each route is printed, read from the names of the
+     kernels the build holds), and phase 2 prints ptxas's registers and
+     spills and the shared memory of every tensor-core instantiation
   6. the training path: GPT-2 small (full width and depth, seeded random
      init, f32 parameters, bf16 compute) trained by the port's Trainer.fit
      at batch 4 x 2048 tokens, launches checked per step, loss finite and
      falling; then one f32 step's loss and grads through the kernels
-     against the plain attention path, and a checkpoint round trip
+     against the plain attention path (the f32 FMA backward kernels; the
+     bf16 tensor-core kernels that training runs are held by phase 5), and
+     a checkpoint round trip
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Every number is printed beside the card's
@@ -49,6 +58,9 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
 LOGITS_BATCH, LOGITS_LEN, LOGITS_PAD = 2, 16, 4
 # the training path: bench.py's gpt2s_flash_2k shape
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 20, 2
+# phase 5's second limit, per block of one batch row, head and 64 positions:
+# ||got - ref|| / ||ref||, set from the readings of sound kernels on the card
+TILE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 # H100 peaks (NVIDIA data sheet, dense): flops by input type, and HBM bytes/s
 PEAKS = {
     "sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
@@ -64,17 +76,99 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def ptxas_summary(report: str) -> str:
-    """Kernels, registers and spills from an nvcc -Xptxas -v report."""
+def ptxas_kernels(report: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from an nvcc -Xptxas -v report."""
     import re
 
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
-    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                            report))
-    if not regs:
+    out, name, spills = {}, None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), *spills)
+            name = None
+    return out
+
+
+def ptxas_summary(report: str) -> str:
+    """Kernels, registers and spills from an nvcc -Xptxas -v report."""
+    kernels = ptxas_kernels(report).values()
+    if not kernels:
         return "no ptxas report"
+    regs = [r for r, _, _ in kernels]
+    spills = sum(st for _, st, _ in kernels)
     return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"{spills} bytes of spill stores")
+
+
+def tensor_core_report(report: str, card: str) -> tuple[int, dict]:
+    """Print registers, spills and shared memory of every tensor-core
+    instantiation of dq and dkv. Return the spill bytes at D = 64, the
+    training head_dim, and each dtype's route as the built library holds
+    it: {dtype: {kernel: (route, instantiations)}}, from the kernels'
+    names (the tensor-core kernels take bfloat16 only, the FMA kernels are
+    templated on the dtype)."""
+    import re
+
+    import torch
+
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+
+    spill64 = 0
+    rows = []
+    routes: dict = {}
+    dtypes = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    for name, (regs, st, ld) in ptxas_kernels(report).items():
+        fma = re.search(
+            r"(flash_bwd_(?:dd|dq|dkv))_kernelI(f|13__nv_bfloat16)[EL]", name)
+        if fma:
+            per = routes.setdefault(dtypes[fma.group(2)], {})
+            route, n = per.get(fma.group(1), ("CUDA-core FMA", 0))
+            per[fma.group(1)] = (route, n + 1)
+        m = re.search(r"(flash_bwd_(dq|dkv))_tc_kernelILi(\d+)ELb([01])E",
+                      name)
+        if not m:
+            continue
+        kernel, d, from_o = m.group(1), int(m.group(3)), m.group(4) == "1"
+        per = routes.setdefault("bfloat16", {})
+        route, n = per.get(kernel, ("tensor cores (mma.sync)", 0))
+        per[kernel] = (route, n + 1)
+        smem = kb.smem_bytes(kernel, torch.bfloat16, d, from_o)
+        rows.append((kernel, d, from_o, regs, st, ld, smem))
+        if d == 64:
+            spill64 += st + ld
+    if len(rows) != 16:
+        raise AssertionError(f"ptxas reported {len(rows)} tensor-core "
+                             "instantiations of dq/dkv, expected 16")
+    for kernel, d, from_o, regs, st, ld, smem in sorted(rows):
+        print(f"  {kernel:13s} bf16 D={d:3d} "
+              f"{'loop2' if from_o else 'ddpre'}: {regs} registers, "
+              f"{st} bytes spill stores, {ld} bytes spill loads, {smem} bytes "
+              f"shared memory [{card}]")
+    return spill64, routes
+
+
+def tile_error(got, ref, tile: int = 64) -> float:
+    """The largest ||got - ref|| / ||ref|| over blocks of one batch row,
+    one head and `tile` positions of (B, H, L, D) tensors: a kernel that
+    gets one tile wrong fails this, however small that tile's values are
+    beside the tensor's largest."""
+    import torch
+
+    def blocks(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, -x.shape[2] % tile))
+        return x.reshape(x.shape[0], x.shape[1], -1, tile * x.shape[3])
+
+    g, r = blocks(got), blocks(ref)
+    return ((g - r).norm(dim=-1)
+            / r.norm(dim=-1).clamp_min(1e-30)).max().item()
 
 
 def time_ms(fn, iters: int) -> float:
@@ -255,10 +349,10 @@ def sdpa_backward_call(q, k, v, bias, g, causal, window):
     return fwd_bwd, fwd_only
 
 
-def phase_backward(peaks, card: str) -> dict:
+def phase_backward(peaks, card: str, routes: dict) -> dict:
     """The backward kernels against the plain backward on the card. Returns
     each kernel's record at the training shape in bf16 (window 0, D read
-    from the pre-kernel)."""
+    from the pre-kernel). `routes` is tensor_core_report's."""
     import torch
 
     from kubeflow_tpu_torch.kernels import flash_bwd as kb
@@ -272,7 +366,14 @@ def phase_backward(peaks, card: str) -> dict:
     print("phase 5: flash backward kernels vs plain version (B, L, H=12, "
           "D=64, causal, pad bias on the last keys of the last row; "
           "tolerance: f32 1e-4 of max(1, the grad's largest |value|), bf16 "
-          "4 bf16 ulps of it)", flush=True)
+          "4 bf16 ulps of it; and per block of one batch row, head and 64 "
+          f"positions, ||got - ref|| within {TILE_TOL['float32']:g} (f32) "
+          f"or {TILE_TOL['bfloat16']:g} (bf16) of ||ref||)", flush=True)
+    for dt in ("bfloat16", "float32"):
+        print(f"  route {dt} (the built library's instantiations): "
+              + ", ".join(f"{k} on {r} ({n} built)"
+                          for k, (r, n) in sorted(routes[dt].items())),
+              flush=True)
     records = {}
     for b, l in ((2, 1024), (TRAIN_BATCH, TRAIN_LEN)):
         for dt in ("float32", "bfloat16"):
@@ -290,28 +391,53 @@ def phase_backward(peaks, card: str) -> dict:
                 errs = {"flash_bwd_dd": (dd - (g.float() * o.float()).sum(
                     -1).transpose(1, 2)).abs().max().item()}
                 scales = {"flash_bwd_dd": 1.0}
+                tiles = {}  # key: (worst block error, output, median |ref|)
                 for form, dd_in in runs.items():
                     dq = kb.flash_bwd_dq(q, k, v, bias, o, g, lse, dd_in,
                                          True, window)
                     dk, dv, dbh = kb.flash_bwd_dkv(q, k, v, bias, o, g, lse,
                                                    dd_in, True, window)
                     dbias = dbh.view(b, h, l).sum(1)[:, None, None]
+                    if l == TRAIN_LEN:  # no atomics: a second call agrees
+                        again = (kb.flash_bwd_dq(q, k, v, bias, o, g, lse,
+                                                 dd_in, True, window),
+                                 *kb.flash_bwd_dkv(q, k, v, bias, o, g, lse,
+                                                   dd_in, True, window))
+                        same = all(torch.equal(x, y) for x, y in zip(
+                            (dq, dk, dv, dbh), again))
+                        print(f"  determinism B={b} L={l} window={window} "
+                              f"{dt} {form}: dq, dk, dv, dbias bit-equal "
+                              f"over two calls: {same} [{card}]", flush=True)
+                        if not same:
+                            raise AssertionError(
+                                f"dq/dkv differ between two calls on the "
+                                f"same inputs ({dt}, window {window}, "
+                                f"{form})")
                     torch.cuda.synchronize()
-                    for name, got, ref in (
-                            ("flash_bwd_dq", dq, want[0]),
-                            ("flash_bwd_dkv", dk, want[1]),
-                            ("flash_bwd_dkv", dv, want[2]),
-                            ("flash_bwd_dkv", dbias, want[3])):
+                    for name, out, got, ref in (
+                            ("flash_bwd_dq", "dq", dq, want[0]),
+                            ("flash_bwd_dkv", "dk", dk, want[1]),
+                            ("flash_bwd_dkv", "dv", dv, want[2]),
+                            ("flash_bwd_dkv", "dbias", dbias, want[3])):
                         ref = ref.float()
                         scale = max(1.0, ref.abs().max().item())
                         err = (got.float() - ref).abs().max().item()
                         key = f"{name}/{form}"
+                        as_bhld = ((lambda x: x.view(b, 1, l, 1))
+                                   if ref.shape[1] == 1
+                                   else (lambda x: x.transpose(1, 2)))
+                        tile = tile_error(as_bhld(got), as_bhld(ref))
+                        if tile >= tiles.get(key, (-1.0,))[0]:
+                            tiles[key] = (tile, out,
+                                          ref.abs().median().item())
                         if err / scale > errs.get(key, 0.0) / scales.get(
                                 key, 1.0):
                             errs[key], scales[key] = err, scale
                 rel_tol = 1e-4 if dt == "float32" else 4 * 2.0 ** -8
                 bad = {n: e for n, e in errs.items()
                        if not math.isfinite(e) or e > rel_tol * scales[n]}
+                bad.update({f"{n} block": t for n, (t, _, _) in tiles.items()
+                            if not t <= TILE_TOL[dt]})
                 iters = 10 if l >= TRAIN_LEN else 20
                 t_dd = time_ms(lambda: kb.flash_bwd_dd(o, g), iters)
                 times = {"flash_bwd_dd": t_dd}
@@ -360,9 +486,17 @@ def phase_backward(peaks, card: str) -> dict:
                               f"plain_ms={rec['plain_ms']:.5f} library_ms="
                               f"{rec['library_ms']:.5f} [{card}]",
                               flush=True)
+                        if key in tiles:
+                            tile, out, typical = tiles[key]
+                            print(f"  {'':20s} worst 64-position block: "
+                                  f"||err||/||ref|| = {tile:.3e} ({out}; "
+                                  f"limit {TILE_TOL[dt]:g}); median |ref| "
+                                  f"{typical:.3g} [{card}]", flush=True)
+                pair = (times['flash_bwd_dq/ddpre']
+                        + times['flash_bwd_dkv/ddpre'])
                 print(f"  B={b} L={l} window={window} {dt}: dq+dkv "
-                      f"{times['flash_bwd_dq/ddpre'] + times['flash_bwd_dkv/ddpre']:.5f}"
-                      f" ms (+dd {t_dd:.5f}), loop2 "
+                      f"{pair:.5f} ms ({pair / lib_bwd:.2f}x SDPA's "
+                      f"backward) (+dd {t_dd:.5f}), loop2 "
                       f"{times['flash_bwd_dq/loop2'] + times['flash_bwd_dkv/loop2']:.5f}"
                       f" ms; SDPA backward {lib_bwd:.5f} ms; plain backward "
                       f"{plain_ms:.5f} ms [{card}]", flush=True)
@@ -525,7 +659,9 @@ def phase_grad_check(cfg, ds, card: str) -> None:
     worst = max(((grads_k[n] - g).abs().max().item()
                  / max(g.abs().max().item(), 1e-3 * top), n)
                 for n, g in grads_p.items())
-    print(f"  f32 grad check, flash kernels vs dense: loss {loss_k:.6f} vs "
+    print(f"  f32 grad check (the f32 FMA backward kernels; phase 5 holds "
+          f"the bf16 tensor-core ones), flash kernels vs dense: loss "
+          f"{loss_k:.6f} vs "
           f"{loss_p:.6f}; worst grad error {worst[0]:.3e} of its scale "
           f"({worst[1]}); dq launches {n_k} vs {n_p} [{card}]", flush=True)
     if (abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst[0] > 1e-3
@@ -715,12 +851,14 @@ def main() -> int:
         report = report_path(src)
         if report.exists():
             print(f"  {src}: {ptxas_summary(report.read_text())}")
+    spill64, routes = tensor_core_report(
+        report_path(KERNELS["flash_bwd_dq"].source).read_text(), card)
 
     timings = {"flash_fwd": phase_kernels(peaks, card)}
     serve_launches = phase_serve(card)
     print(f"  serving path: flash_fwd launches {serve_launches} [{card}]",
           flush=True)
-    timings.update(phase_backward(peaks, card))
+    timings.update(phase_backward(peaks, card, routes))
     launches, step_ms = phase_train(card)
     per_step = launches["flash_bwd_dq"] // TRAIN_STEPS  # one per layer
     attn_ms = per_step * sum(t["ms"] for t in timings.values())
@@ -735,6 +873,10 @@ def main() -> int:
           + ", ".join(f"{n} {100 * t['bound_ms'] / t['ms']:.2f}%"
                       for n, t in timings.items()) + f" [{card}]",
           flush=True)
+
+    if spill64:
+        raise AssertionError(f"the bf16 tensor-core kernels spill {spill64} "
+                             "bytes at D = 64")
 
     record = {"kernels": [{
         "name": name,

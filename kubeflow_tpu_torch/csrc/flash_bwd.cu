@@ -33,28 +33,51 @@
 // What bounds them on the H100: dq does 3 products per live (q, k) pair and d
 // (q·kᵀ, dO·vᵀ, ds·k) and dkv 4 (q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q), i.e. about 6 and 8
 // operations per (q, k, d); against ~L·H·D·8 bytes per row that must move, that
-// is operation-bound on the CUDA cores at every training length. dd reads dO
-// and O once and does 2 operations per element: bound by bytes.
+// is operation-bound at every training length: on the tensor cores in bf16
+// (989 TFLOP/s), on the CUDA cores in f32 (67 TFLOP/s). dd reads dO and O once
+// and does 2 operations per element: bound by bytes.
 //
-// The design, simple first, like the forward (csrc/flash_fwd.cu): the TPU
-// kernels carried dq (or dk/dv/dbias) in VMEM scratch across a sequential grid
-// axis; CTAs cannot, so each CTA loops over the opposite axis itself with its
-// accumulators in registers. Two passes, as the TPU kernels do: dq over KV
-// tiles, dk/dv over Q tiles, each recomputing p from the forward's lse. No CTA
-// writes what another CTA writes, so there are no atomics and the results are
-// deterministic. 256 threads per CTA, 64×64 tiles, f32 copies of the tiles in
-// shared memory (odd pitches keep the rows in different banks), each thread
-// owning a 4×4 block of the score tile and 4 rows × D/16 columns of its
-// accumulators: at D = 128 the dk and dv sums take 64 registers a thread, no
-// more. Arithmetic is f32 FMA on the CUDA cores for both dtypes. Tensor cores
-// (wgmma), TMA pipelining and a single-pass backward with atomic dq are left
-// for the PRs that make it fast.
+// Both dtypes share the TPU kernels' two-pass structure: the TPU kernels
+// carried dq (or dk/dv/dbias) in VMEM scratch across a sequential grid axis;
+// CTAs cannot, so each CTA loops over the opposite axis itself with its
+// accumulators in registers. dq loops over KV tiles, dk/dv over Q tiles, each
+// recomputing p from the forward's lse. No CTA writes what another CTA writes,
+// so there are no atomics and the results are deterministic.
+//
+// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): 256 threads per CTA, 64×64
+// tiles, f32 copies of the tiles in shared memory (odd pitches keep the rows
+// in different banks), each thread owning a 4×4 block of the score tile and 4
+// rows × D/16 columns of its accumulators; f32 FMA on the CUDA cores, level
+// with SDPA's f32 backward, so TF32 would only change the numbers.
+//
+// bf16 (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel), FlashAttention-2
+// style: every product is mma.sync m16n8k16 with bf16 operands and f32
+// accumulation, the TPU kernels' bf16 dot_general with
+// preferred_element_type=f32 (:765-773, :806-817). 4 warps per CTA, each
+// owning 16 rows of the CTA's 64 (queries in dq, keys in dkv) and all D
+// columns of its sums. Tiles arrive by 16-byte cp.async into bf16 shared
+// memory, two stages deep (the next K/V tile, or Q/dO/lse/D tile, is in
+// flight while the current one computes), rows padded by 16 bytes so ldmatrix
+// reads 8 rows from 8 different bank groups; rows past Lq/Lk are zero-filled.
+// ldmatrix feeds B non-transposed where the product reduces over D (q·kᵀ,
+// dO·vᵀ; k·qᵀ, v·dOᵀ) and transposed where it reduces over keys or queries (K
+// in ds·k; dO in pᵀ·dO and Q in dsᵀ·q). p and ds go from the score
+// accumulators to the next product's A fragments in registers, rounded to
+// bf16 there (the TPU kernels' rounding points); dbias takes the f32 ds. A
+// warp keeps its 16 rows of q/dO (dq) or k/v (dkv) as fragments at D ≤ 64 and
+// reads them per k-step at D = 128, where dkv also takes 32-query tiles, so
+// that the dk and dv sums (16 × 128 f32 each a warp) fit the registers. The
+// mask is applied element by element only on tiles that cross the diagonal,
+// the window edge or the ragged end; dead tiles are skipped. wgmma with TMA
+// and warp specialisation, and a single-pass backward with atomic dq (not
+// deterministic), are left for later PRs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 // The argument block of every entry point (mirrored by a ctypes.Structure in
 // kubeflow_tpu_torch/kernels/flash_bwd.py; keep the two in the same order).
@@ -102,10 +125,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and back: the TPU kernels' `.astype(ref.dtype)` before a
 // product whose other operand is of type T
@@ -504,65 +523,633 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdArgs a) {
   }
 }
 
+// ------------------------------------------------------- bf16: tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 128;  // 4 warps, 16 rows of the CTA's 64 each
+constexpr int ROWS = 64;  // Q rows of a dq CTA, keys of a dkv CTA
+constexpr int BK = 64;    // keys per KV tile of the dq loop
+constexpr int PAD = 8;    // bf16 pad per shared row: 16 bytes
+
+// queries per Q tile of the dkv loop: 32 at D = 128 keeps the dk and dv sums
+// and the score tiles of a warp within the registers
+template <int D>
+constexpr int DKV_BQ = D > 64 ? 32 : 64;
+
+// a warp holds its 16 rows of q/dO (dq) or k/v (dkv) as A fragments
+template <int D>
+constexpr bool HOLD_ROWS = D <= 64;
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared; 16 zero bytes where !ok (src-size 0)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   saddr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 bytes (one f32 of lse or D); zero where !ok
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   saddr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr(p)));
+}
+
+// c (16×8 f32) += a (16×16 bf16, row-major) · b (16×8 bf16, col-major)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment layouts of m16n8k16 (lane = 4·g + t): A holds (row g | g+8, cols
+// 2t, 2t+1 | 2t+8, 2t+9); B holds (k rows 2t, 2t+1 | 2t+8, 2t+9, col g); the
+// accumulator holds (row g, cols 2t, 2t+1) in c[0..1], row g+8 in c[2..3].
+
+// the A fragment of rows [r0, r0+16), cols [c0, c0+16) of a row-major tile
+template <int P>
+__device__ __forceinline__ void lds_a(uint32_t (&a)[4], const bf16* tile,
+                                      int r0, int c0, int lane) {
+  ldsm4(a, tile + (r0 + (lane & 15)) * P + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of tile rows [n0, n0+16) as the n side, cols [c0, c0+16) as the
+// k side (B[k][n] = tile[n][k]): b[0..1] for n0..n0+7, b[2..3] for n0+8..
+template <int P>
+__device__ __forceinline__ void lds_b(uint32_t (&b)[4], const bf16* tile,
+                                      int n0, int c0, int lane) {
+  ldsm4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * P + c0 +
+               ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of tile rows [k0, k0+16) as the k side, cols [n0, n0+16) as the
+// n side (B[k][n] = tile[k][n], ldmatrix.trans): b[0..1] for cols n0..n0+7,
+// b[2..3] for n0+8..
+template <int P>
+__device__ __forceinline__ void lds_bt(uint32_t (&b)[4], const bf16* tile,
+                                       int k0, int n0, int lane) {
+  ldsm4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n0 +
+                 (lane >> 4) * 8);
+}
+
+// acc (16 × W) += A rows · Bt[0..W)ᵀ over D: A is the warp's 16 rows, held as
+// fragments or read from `at` at row r0; Bt a W × D tile
+template <int D, int W, bool HOLD>
+__device__ __forceinline__ void scores(float (&acc)[W / 8][4],
+                                       const uint32_t (&held)[HOLD ? D / 16 : 1][4],
+                                       const bf16* at, int r0, const bf16* bt,
+                                       int lane) {
+  constexpr int P = D + PAD;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = held[kk][i];
+    } else {
+      lds_a<P>(a, at, r0, kk * 16, lane);
+    }
+#pragma unroll
+    for (int np = 0; np < W / 16; ++np) {
+      uint32_t b[4];
+      lds_b<P>(b, bt, np * 16, kk * 16, lane);
+      mma(acc[2 * np], a, b[0], b[1]);
+      mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 × D) += X (16 × W, bf16 fragments from registers) · Bt (W × D tile)
+template <int D, int W>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const uint32_t (&x)[W / 16][4],
+                                           const bf16* bt, int lane) {
+  constexpr int P = D + PAD;
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk)
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      uint32_t b[4];
+      lds_bt<P>(b, bt, kk * 16, nd * 16, lane);
+      mma(acc[2 * nd], x[kk], b[0], b[1]);
+      mma(acc[2 * nd + 1], x[kk], b[2], b[3]);
+    }
+}
+
+// the score accumulators (16 × W f32) as bf16 A fragments over W
+template <int W>
+__device__ __forceinline__ void to_a(uint32_t (&x)[W / 16][4],
+                                     const float (&s)[W / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    x[kk][0] = pack(s[2 * kk][0], s[2 * kk][1]);
+    x[kk][1] = pack(s[2 * kk][2], s[2 * kk][3]);
+    x[kk][2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    x[kk][3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void zero(float (&x)[W][4]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
+}
+
+// rows [r0, r0 + R) of a (B, L, H, D) bf16 tensor (base at (b, 0, h, 0),
+// position stride sl) into an R × (D + PAD) tile, by 16-byte cp.async; rows
+// past L are zero-filled
+template <int D, int R>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base,
+                                          long long sl, int r0, int L) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  static_assert((R * CPR) % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int j = 0; j < R * CPR / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i / CPR, c = i % CPR, g = r0 + r;
+    const bool ok = g < L;
+    cp16(dst + r * (D + PAD) + c * 8, base + (ok ? g * sl : 0) + c * 8, ok);
+  }
+}
+
+// f32 r of a (B·H, Lq) row (lse or D) from position r0; zero past Lq
+__device__ __forceinline__ void load_stat(float* dst, const float* row,
+                                          int r0, int Lq, int r) {
+  const bool ok = r0 + r < Lq;
+  cp4(dst + r, row + (ok ? r0 + r : 0), ok);
+}
+
+// D = Σ_d dO∘O in f32 for the R rows of a tile pair in shared memory (the
+// loop2 form; zero rows give 0): NT / R threads a row
+template <int D, int R>
+__device__ __forceinline__ void tile_dd(float* Ds, const bf16* dOs,
+                                        const bf16* Os) {
+  constexpr int TPR = NT / R, SPAN = D / TPR;
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
+  const bf16* x = dOs + r * (D + PAD) + part * SPAN;
+  const bf16* y = Os + r * (D + PAD) + part * SPAN;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < SPAN; ++c)
+    acc = fmaf(__bfloat162float(x[c]), __bfloat162float(y[c]), acc);
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0) Ds[r] = acc;
+}
+
+// the tile pair (q rows [q0, q0 + bq), keys [k0, k0 + bk)) has a pair the
+// mask or the ragged end touches
+__device__ __forceinline__ bool edge_tile(const BwdArgs& a, int q0, int bq,
+                                          int k0, int bk) {
+  return q0 + bq > a.Lq || k0 + bk > a.Lk ||
+         (a.causal && (k0 + bk - 1 > q0 ||
+                       (a.window > 0 && q0 + bq - 1 - k0 >= a.window)));
+}
+
+template <int D, bool FROM_O>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO, [O] once; K, V two stages each; bias two stages; lse, D
+  return sizeof(bf16) * (2 + 4 + (FROM_O ? 1 : 0)) * ROWS * (D + PAD) +
+         sizeof(float) * (2 * BK + 2 * ROWS);
+}
+
+template <int D, bool FROM_O>
+__global__ void __launch_bounds__(NT) flash_bwd_dq_tc_kernel(BwdArgs a) {
+  constexpr int P = D + PAD, BQ = ROWS, NB = BK / 8;
+  constexpr bool HOLD = HOLD_ROWS<D>;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* dOs = Qs + BQ * P;
+  bf16* Ks = dOs + BQ * P;  // 2 stages
+  bf16* Vs = Ks + 2 * BK * P;
+  bf16* Os = Vs + 2 * BK * P;  // loop2 form only
+  float* Bs = reinterpret_cast<float*>(Os + (FROM_O ? BQ * P : 0));
+  float* Ls = Bs + 2 * BK;
+  float* Ds = Ls + BQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[2];
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[2];
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[2];
+  const bf16* gb =
+      static_cast<const bf16*>(a.dout) + b * a.sdo[0] + h * a.sdo[2];
+  const bf16* biasb = static_cast<const bf16*>(a.bias) + (long long)b * Lk;
+
+  // the live KV tiles of this Q tile, as the FMA kernel bounds them
+  const int q_last = min(q0 + BQ, Lq) - 1;
+  int kt_end = (Lk + BK - 1) / BK;
+  int kt_begin = 0;
+  if (a.causal) {
+    kt_end = min(kt_end, q_last / BK + 1);
+    const int oldest = q0 - (a.window - 1);
+    if (a.window > 0 && oldest > 0) kt_begin = oldest / BK;
+  }
+
+  load_rows<D, BQ>(Qs, qb, a.sq[1], q0, Lq);
+  load_rows<D, BQ>(dOs, gb, a.sdo[1], q0, Lq);
+  if (FROM_O) {
+    const bf16* ob = static_cast<const bf16*>(a.o) + b * a.so[0] +
+                     h * a.so[2];
+    load_rows<D, BQ>(Os, ob, a.so[1], q0, Lq);
+  }
+  if (tid < BQ)
+    load_stat(Ls, a.lse + (long long)bh * Lq, q0, Lq, tid);
+  else if (!FROM_O && tid < 2 * BQ)
+    load_stat(Ds, a.dd + (long long)bh * Lq, q0, Lq, tid - BQ);
+  if (kt_begin < kt_end) {
+    const int k0 = kt_begin * BK;
+    load_rows<D, BK>(Ks, kb, a.sk[1], k0, Lk);
+    load_rows<D, BK>(Vs, vb, a.sv[1], k0, Lk);
+    if (tid < BK)
+      Bs[tid] = k0 + tid < Lk ? __bfloat162float(biasb[k0 + tid]) : 0.f;
+  }
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  if (FROM_O) {
+    tile_dd<D, BQ>(Ds, dOs, Os);
+    __syncthreads();
+  }
+
+  const int r_lo = warp * 16 + g;  // this lane's rows: r_lo and r_lo + 8
+  const float lse[2] = {Ls[r_lo], Ls[r_lo + 8]};
+  const float dd[2] = {Ds[r_lo], Ds[r_lo + 8]};
+  uint32_t qf[HOLD ? D / 16 : 1][4], gf[HOLD ? D / 16 : 1][4];
+  if constexpr (HOLD) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      lds_a<P>(qf[kk], Qs, warp * 16, kk * 16, lane);
+      lds_a<P>(gf[kk], dOs, warp * 16, kk * 16, lane);
+    }
+  }
+  float acc[D / 8][4];
+  zero(acc);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1, k0 = kt * BK;
+    if (kt > kt_begin) {
+      cp_wait_all();  // this tile's K/V
+      __syncthreads();  // ... for every warp; the other stage is free
+    }
+    float bias_next = 0.f;
+    if (kt + 1 < kt_end) {
+      const int k1 = k0 + BK;
+      load_rows<D, BK>(Ks + (st ^ 1) * BK * P, kb, a.sk[1], k1, Lk);
+      load_rows<D, BK>(Vs + (st ^ 1) * BK * P, vb, a.sv[1], k1, Lk);
+      if (tid < BK && k1 + tid < Lk)
+        bias_next = __bfloat162float(biasb[k1 + tid]);
+    }
+    cp_commit();
+    const bf16* Kt = Ks + st * BK * P;
+    const bf16* Vt = Vs + st * BK * P;
+    const float* Bt = Bs + st * BK;
+
+    float s[NB][4], dp[NB][4];
+    zero(s);
+    zero(dp);
+    scores<D, BK, HOLD>(s, qf, Qs, warp * 16, Kt, lane);   // q·kᵀ
+    scores<D, BK, HOLD>(dp, gf, dOs, warp * 16, Vt, lane);  // dO·vᵀ
+
+    // p = exp(s·scale + bias + mask − lse); ds = p∘(dp − D), into s
+    const bool edge = edge_tile(a, q0, BQ, k0, BK);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lc = n * 8 + 2 * t + (e & 1);
+        float x = s[n][e] * a.scale + Bt[lc];
+        float p;
+        if (edge) {
+          const int row = q0 + r_lo + (e >> 1) * 8, col = k0 + lc;
+          if (masked(row, col, a.causal, a.window)) x += NEG_INF;
+          p = row < Lq && col < Lk ? expf(x - lse[e >> 1]) : 0.f;
+        } else {
+          p = expf(x - lse[e >> 1]);
+        }
+        s[n][e] = p * (dp[n][e] - dd[e >> 1]);
+      }
+
+    // dq += ds·k, ds rounded to bf16 (ds.astype(k.dtype), :771)
+    uint32_t dsf[BK / 16][4];
+    to_a<BK>(dsf, s);
+    accumulate<D, BK>(acc, dsf, Kt, lane);
+    if (kt + 1 < kt_end && tid < BK) Bs[(st ^ 1) * BK + tid] = bias_next;
+  }
+
+  bf16* dqb = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r_lo + half * 8;
+    if (row >= Lq) continue;
+    bf16* out = dqb + (((long long)b * Lq + row) * a.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t) =
+          pack(acc[n][2 * half] * a.scale, acc[n][2 * half + 1] * a.scale);
+  }
+}
+
+template <int D, bool FROM_O>
+constexpr size_t dkv_smem_bytes() {
+  // K, V once; Q, dO, [O] two stages each; lse, D two stages
+  constexpr int BQ = DKV_BQ<D>;
+  return sizeof(bf16) *
+             (2 * ROWS + 2 * (2 + (FROM_O ? 1 : 0)) * BQ) * (D + PAD) +
+         sizeof(float) * 4 * BQ;
+}
+
+template <int D, bool FROM_O>
+__global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(BwdArgs a) {
+  constexpr int P = D + PAD, BKV = ROWS, BQ = DKV_BQ<D>, NB = BQ / 8;
+  constexpr bool HOLD = HOLD_ROWS<D>;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Vs = Ks + BKV * P;
+  bf16* Qs = Vs + BKV * P;  // 2 stages
+  bf16* dOs = Qs + 2 * BQ * P;
+  bf16* Os = dOs + 2 * BQ * P;  // loop2 form only, 2 stages
+  float* Ls = reinterpret_cast<float*>(Os + (FROM_O ? 2 * BQ * P : 0));
+  float* Ds = Ls + 2 * BQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * BKV;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[2];
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[2];
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[2];
+  const bf16* gb =
+      static_cast<const bf16*>(a.dout) + b * a.sdo[0] + h * a.sdo[2];
+  const bf16* ob = static_cast<const bf16*>(a.o) + b * a.so[0] + h * a.so[2];
+  const bf16* biasb = static_cast<const bf16*>(a.bias) + (long long)b * Lk;
+  const float* lse_row = a.lse + (long long)bh * Lq;
+  const float* dd_row = FROM_O ? nullptr : a.dd + (long long)bh * Lq;
+
+  // the live Q tiles of this KV tile (:1039-1046): at or below the diagonal
+  // of its first key, and not wholly past its last key's window
+  const int nqt = (Lq + BQ - 1) / BQ;
+  int qt_begin = 0, qt_end = nqt;
+  if (a.causal) {
+    qt_begin = k0 / BQ;
+    if (a.window > 0) {
+      const int k_last = min(k0 + BKV, Lk) - 1;
+      qt_end = min(nqt, (k_last + a.window - 1) / BQ + 1);
+    }
+  }
+
+  // Q, dO, [O], lse and [D] of Q tile qt into stage st
+  auto fetch = [&](int qt, int st) {
+    const int q0 = qt * BQ;
+    load_rows<D, BQ>(Qs + st * BQ * P, qb, a.sq[1], q0, Lq);
+    load_rows<D, BQ>(dOs + st * BQ * P, gb, a.sdo[1], q0, Lq);
+    if (FROM_O) load_rows<D, BQ>(Os + st * BQ * P, ob, a.so[1], q0, Lq);
+    if (tid < BQ)
+      load_stat(Ls + st * BQ, lse_row, q0, Lq, tid);
+    else if (!FROM_O && tid < 2 * BQ)
+      load_stat(Ds + st * BQ, dd_row, q0, Lq, tid - BQ);
+  };
+
+  load_rows<D, BKV>(Ks, kb, a.sk[1], k0, Lk);
+  load_rows<D, BKV>(Vs, vb, a.sv[1], k0, Lk);
+  if (qt_begin < qt_end) fetch(qt_begin, 0);
+  cp_commit();
+
+  const int r_lo = warp * 16 + g;  // this lane's keys: r_lo and r_lo + 8
+  float bias[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + r_lo + half * 8;
+    bias[half] = key < Lk ? __bfloat162float(biasb[key]) : 0.f;
+  }
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+  float db[2] = {0.f, 0.f};
+
+  cp_wait_all();
+  __syncthreads();
+  uint32_t kf[HOLD ? D / 16 : 1][4], vf[HOLD ? D / 16 : 1][4];
+  if constexpr (HOLD) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      lds_a<P>(kf[kk], Ks, warp * 16, kk * 16, lane);
+      lds_a<P>(vf[kk], Vs, warp * 16, kk * 16, lane);
+    }
+  }
+
+  for (int qt = qt_begin; qt < qt_end; ++qt) {
+    const int st = (qt - qt_begin) & 1, q0 = qt * BQ;
+    if (qt > qt_begin) {
+      cp_wait_all();  // this tile's Q/dO/lse/D
+      __syncthreads();  // ... for every warp; the other stage is free
+    }
+    if (qt + 1 < qt_end) fetch(qt + 1, st ^ 1);
+    cp_commit();
+    const bf16* Qt = Qs + st * BQ * P;
+    const bf16* dOt = dOs + st * BQ * P;
+    const float* Lt = Ls + st * BQ;
+    float* Dt = Ds + st * BQ;
+    if (FROM_O) {
+      tile_dd<D, BQ>(Dt, dOt, Os + st * BQ * P);
+      __syncthreads();
+    }
+
+    // sᵀ = k·qᵀ; p = exp(sᵀ·scale + bias + mask − lse), in place
+    float s[NB][4];
+    zero(s);
+    scores<D, BQ, HOLD>(s, kf, Ks, warp * 16, Qt, lane);
+    const bool edge = edge_tile(a, q0, BQ, k0, BKV);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lq = n * 8 + 2 * t + (e & 1);
+        float x = s[n][e] * a.scale + bias[e >> 1];
+        if (edge) {
+          const int row = q0 + lq, col = k0 + r_lo + (e >> 1) * 8;
+          if (masked(row, col, a.causal, a.window)) x += NEG_INF;
+          s[n][e] = row < Lq && col < Lk ? expf(x - Lt[lq]) : 0.f;
+        } else {
+          s[n][e] = expf(x - Lt[lq]);
+        }
+      }
+
+    // dv += pᵀ·dO, p rounded to bf16 (p.astype(dO.dtype), :812)
+    uint32_t xf[BQ / 16][4];
+    to_a<BQ>(xf, s);
+    accumulate<D, BQ>(dv, xf, dOt, lane);
+
+    // dpᵀ = v·dOᵀ; ds = p∘(dp − D), into dp; dbias takes the f32 ds
+    float dp[NB][4];
+    zero(dp);
+    scores<D, BQ, HOLD>(dp, vf, Vs, warp * 16, dOt, lane);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lq = n * 8 + 2 * t + (e & 1);
+        dp[n][e] = s[n][e] * (dp[n][e] - Dt[lq]);
+        db[e >> 1] += dp[n][e];
+      }
+
+    // dk += dsᵀ·q, ds rounded to bf16 (ds.astype(q.dtype), :816)
+    to_a<BQ>(xf, dp);
+    accumulate<D, BQ>(dk, xf, Qt, lane);
+  }
+
+  // dbias: the 4 lanes of a quad share a key row
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    db[half] += __shfl_xor_sync(0xffffffffu, db[half], 1);
+    db[half] += __shfl_xor_sync(0xffffffffu, db[half], 2);
+  }
+  bf16* dkb = static_cast<bf16*>(a.dk);
+  bf16* dvb = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + r_lo + half * 8;
+    if (key >= Lk) continue;
+    const long long off = (((long long)b * Lk + key) * a.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkb + off + c) =
+          pack(dk[n][2 * half] * a.scale, dk[n][2 * half + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvb + off + c) =
+          pack(dv[n][2 * half], dv[n][2 * half + 1]);
+    }
+    if (a.dbias != nullptr && t == 0)
+      a.dbias[(long long)bh * Lk + key] = db[half];
+  }
+}
+
+}  // namespace tc
+
 // ------------------------------------------------------------------ launch
 
 template <typename Kern>
-cudaError_t launch(Kern kern, dim3 grid, size_t smem, const BwdArgs& a,
-                   cudaStream_t stream) {
+cudaError_t launch(Kern kern, dim3 grid, int threads, size_t smem,
+                   const BwdArgs& a, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<grid, NT, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool FROM_O>
-cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
-  return launch(flash_bwd_dq_kernel<T, D, FROM_O>, grid,
-                sizeof(float) * dq_smem_floats<D>(), a, stream);
+// bf16 goes to the tensor-core kernels, f32 to the FMA kernels
+template <typename T>
+constexpr bool on_tensor_cores() {
+  return std::is_same<T, __nv_bfloat16>::value;
 }
 
 template <typename T, int D, bool FROM_O>
-cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.Lk + BK - 1) / BK, a.B * a.H);
-  return launch(flash_bwd_dkv_kernel<T, D, FROM_O>, grid,
-                sizeof(float) * dkv_smem_floats<D>(), a, stream);
-}
+struct Dq {
+  static size_t smem() {
+    if constexpr (on_tensor_cores<T>())
+      return tc::dq_smem_bytes<D, FROM_O>();
+    else
+      return sizeof(float) * dq_smem_floats<D>();
+  }
+  static cudaError_t run(const BwdArgs& a, cudaStream_t s) {
+    if constexpr (on_tensor_cores<T>()) {
+      const dim3 grid((a.Lq + tc::ROWS - 1) / tc::ROWS, a.B * a.H);
+      return launch(tc::flash_bwd_dq_tc_kernel<D, FROM_O>, grid, tc::NT,
+                    smem(), a, s);
+    } else {
+      const dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
+      return launch(flash_bwd_dq_kernel<T, D, FROM_O>, grid, NT, smem(), a,
+                    s);
+    }
+  }
+};
 
-// one switch over (dtype, D, D-from-O) for both tiled kernels
-template <template <typename, int, bool> class Launch>
-cudaError_t dispatch(const BwdArgs& a, bool from_o, cudaStream_t stream) {
+template <typename T, int D, bool FROM_O>
+struct Dkv {
+  static size_t smem() {
+    if constexpr (on_tensor_cores<T>())
+      return tc::dkv_smem_bytes<D, FROM_O>();
+    else
+      return sizeof(float) * dkv_smem_floats<D>();
+  }
+  static cudaError_t run(const BwdArgs& a, cudaStream_t s) {
+    if constexpr (on_tensor_cores<T>()) {
+      const dim3 grid((a.Lk + tc::ROWS - 1) / tc::ROWS, a.B * a.H);
+      return launch(tc::flash_bwd_dkv_tc_kernel<D, FROM_O>, grid, tc::NT,
+                    smem(), a, s);
+    } else {
+      const dim3 grid((a.Lk + BK - 1) / BK, a.B * a.H);
+      return launch(flash_bwd_dkv_kernel<T, D, FROM_O>, grid, NT, smem(), a,
+                    s);
+    }
+  }
+};
+
+// one switch over (dtype, D, D-from-O) for both tiled kernels: f(Op<T, D,
+// FROM_O>{}), or `bad` for a combination that has no kernel
+template <template <typename, int, bool> class Op, typename R, typename F>
+R dispatch(int dtype, int d, bool from_o, R bad, F f) {
 #define KFT_CASE(T, DIM)                                                   \
-  if (a.D == DIM)                                                          \
-    return from_o ? Launch<T, DIM, true>::run(a, stream)                   \
-                  : Launch<T, DIM, false>::run(a, stream);
-  if (a.dtype == 0) {
+  if (d == DIM) return from_o ? f(Op<T, DIM, true>{}) : f(Op<T, DIM, false>{});
+  if (dtype == 0) {
     KFT_CASE(float, 16) KFT_CASE(float, 32) KFT_CASE(float, 64)
     KFT_CASE(float, 128)
-  } else if (a.dtype == 1) {
+  } else if (dtype == 1) {
     KFT_CASE(__nv_bfloat16, 16) KFT_CASE(__nv_bfloat16, 32)
     KFT_CASE(__nv_bfloat16, 64) KFT_CASE(__nv_bfloat16, 128)
   }
 #undef KFT_CASE
-  return cudaErrorInvalidValue;
+  return bad;
 }
-
-template <typename T, int D, bool FROM_O>
-struct DqLaunch {
-  static cudaError_t run(const BwdArgs& a, cudaStream_t s) {
-    return launch_dq<T, D, FROM_O>(a, s);
-  }
-};
-
-template <typename T, int D, bool FROM_O>
-struct DkvLaunch {
-  static cudaError_t run(const BwdArgs& a, cudaStream_t s) {
-    return launch_dkv<T, D, FROM_O>(a, s);
-  }
-};
 
 }  // namespace
 
@@ -574,20 +1161,34 @@ extern "C" int kft_flash_bwd_dd(const BwdArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = (long long)a->B * a->H * a->Lq;
   const dim3 grid((unsigned)((rows + WARPS - 1) / WARPS));
-  if (a->dtype == 0) return launch(flash_bwd_dd_kernel<float>, grid, 0, *a, s);
+  if (a->dtype == 0)
+    return launch(flash_bwd_dd_kernel<float>, grid, NT, 0, *a, s);
   if (a->dtype == 1)
-    return launch(flash_bwd_dd_kernel<__nv_bfloat16>, grid, 0, *a, s);
+    return launch(flash_bwd_dd_kernel<__nv_bfloat16>, grid, NT, 0, *a, s);
   return cudaErrorInvalidValue;
 }
 
 // from_o: 0 reads D from a->dd; 1 computes it per tile from a->o (loop2)
 extern "C" int kft_flash_bwd_dq(const BwdArgs* a, int from_o, void* stream) {
-  return dispatch<DqLaunch>(*a, from_o != 0, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch<Dq>(a->dtype, a->D, from_o != 0, cudaErrorInvalidValue,
+                      [&](auto op) { return op.run(*a, s); });
 }
 
 extern "C" int kft_flash_bwd_dkv(const BwdArgs* a, int from_o, void* stream) {
-  return dispatch<DkvLaunch>(*a, from_o != 0,
-                             static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch<Dkv>(a->dtype, a->D, from_o != 0, cudaErrorInvalidValue,
+                       [&](auto op) { return op.run(*a, s); });
+}
+
+// the dynamic shared memory (bytes) a launch of dq (kernel 0) or dkv (1)
+// takes for this dtype, head_dim and D form; -1 where there is no kernel
+extern "C" long long kft_flash_bwd_smem(int kernel, int dtype, int d,
+                                        int from_o) {
+  auto bytes = [](auto op) { return (long long)op.smem(); };
+  if (kernel == 0) return dispatch<Dq>(dtype, d, from_o != 0, -1LL, bytes);
+  if (kernel == 1) return dispatch<Dkv>(dtype, d, from_o != 0, -1LL, bytes);
+  return -1;
 }
 
 extern "C" const char* kft_cuda_error_string(int err) {

@@ -1,18 +1,32 @@
 """Wrappers of the hand-written flash-attention backward (csrc/flash_bwd.cu).
 
-Three kernels, one library:
+Three kernels, one library, replacing the Pallas TPU backward of
+kubeflow_tpu/parallel/ring_attention.py:
 
-  flash_bwd_dd   D = Σ_d dO∘O                       -> (B, H, Lq) f32
+  flash_bwd_dd   D = Σ_d dO∘O -> (B, H, Lq) f32    (`_dd_prekernel`, :1279)
   flash_bwd_dq   dq from q, k, v, bias, dO, lse and D (or O)
+                 (`_flash_dq_kernel` :748 and its loop/loop2 forms)
   flash_bwd_dkv  dk, dv and the per-head dbias row from the same
+                 (`_flash_dkv_kernel` :786 and its loop/loop2 forms)
+
+dq and dkv are bound by operations on the H100. In bfloat16 they run on the
+tensor cores: FlashAttention-2-style mma.sync m16n8k16
+products with f32 accumulation, fed by ldmatrix from shared-memory tiles
+that 16-byte cp.async copies fill two stages ahead, with p and ds rounded to
+bf16 where the TPU kernels round them. In float32 they stay f32 FMA on the
+CUDA cores, level with SDPA's f32 backward. Both are two deterministic
+passes (no atomics); csrc/flash_bwd.cu says more.
 
 Inputs are the public layout: q, o, dO (B, Lq, H, D), k, v (B, Lk, H, D),
 one dtype (float32 or bfloat16), read by stride with a unit stride on D (so
-dO may come as autograd hands it over); bias (B, 1, 1, Lk) of the same
-dtype, contiguous; lse and D (B, H, Lq) float32, contiguous. dq, dk and dv
-come back contiguous in the input dtype, dbias per (b·h, key) in float32.
-Every launch is on the current stream and does not synchronise. The plain
-PyTorch version of the same functions is
+dO may come as autograd hands it over); in bfloat16 the tensors copied by
+16-byte cp.async also need a 16-byte-aligned start and batch, position and
+head strides that are multiples of 8 elements (``readable_in_place``;
+the autograd backward copies a dO that lacks them). bias (B, 1, 1, Lk) of the
+same dtype, contiguous; lse and D (B, H, Lq) float32, contiguous. dq, dk
+and dv come back contiguous in the input dtype, dbias per (b·h, key) in
+float32. Every launch is on the current stream and does not synchronise.
+The plain PyTorch version of the same functions is
 ``parallel.ring_attention.flash_backward_plain``.
 """
 
@@ -58,9 +72,24 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.kft_flash_bwd_dq, lib.kft_flash_bwd_dkv):
         fn.argtypes = [args, _i, _p]
         fn.restype = _i
+    lib.kft_flash_bwd_smem.argtypes = [_i, _i, _i, _i]
+    lib.kft_flash_bwd_smem.restype = _ll
     lib.kft_cuda_error_string.argtypes = [_i]
     lib.kft_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(kernel: str, dtype: torch.dtype, head_dim: int,
+               from_o: bool) -> int:
+    """The dynamic shared memory one launch of ``kernel`` ("flash_bwd_dq"
+    or "flash_bwd_dkv") takes, as the library computes it."""
+    which = {"flash_bwd_dq": 0, "flash_bwd_dkv": 1}[kernel]
+    n = _lib().kft_flash_bwd_smem(which, _DTYPES[dtype], head_dim,
+                                  int(from_o))
+    if n < 0:
+        raise ValueError(f"{kernel} has no kernel for {dtype}, head_dim "
+                         f"{head_dim}")
+    return n
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -73,6 +102,37 @@ def _strides(name: str, t: torch.Tensor) -> tuple[int, int, int]:
         raise ValueError(f"flash backward: {name} has stride {t.stride(3)} "
                          "on head_dim; the kernels read it with stride 1")
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _async_copy_fault(t: torch.Tensor) -> str | None:
+    """What a (B, L, H, D) tensor lacks for the bf16 kernels' 16-byte
+    cp.async copies (a 16-byte-aligned start, and batch, position and head
+    strides that are multiples of 8 elements on dims longer than 1), or
+    None."""
+    if t.data_ptr() % 16:
+        return ("starts at an address that is not 16-byte aligned (storage "
+                f"offset {t.storage_offset()})")
+    for dim, what in enumerate(("batch", "position", "head")):
+        if t.shape[dim] > 1 and t.stride(dim) % 8:
+            return (f"has {what} stride {t.stride(dim)}, not a multiple of 8 "
+                    "elements")
+    return None
+
+
+def _check_async_copies(name: str, t: torch.Tensor) -> None:
+    fault = _async_copy_fault(t)
+    if fault:
+        raise ValueError(f"flash backward: {name} {fault}; the bf16 kernels "
+                         "copy it 16 bytes at a time")
+
+
+def readable_in_place(t: torch.Tensor) -> bool:
+    """Whether the kernels can read the (B, L, H, D) tensor ``t`` as it is:
+    a unit head_dim stride and, in bfloat16, what the 16-byte copies need.
+    Where not, a contiguous copy (``clone``, which also realigns) can."""
+    if t.stride(3) != 1 and t.shape[3] != 1:
+        return False
+    return t.dtype != torch.bfloat16 or _async_copy_fault(t) is None
 
 
 def _args(q, k, v, bias, o, do, lse, dd, causal: bool,
@@ -130,6 +190,10 @@ def _args(q, k, v, bias, o, do, lse, dd, causal: bool,
         raise ValueError(f"flash backward: empty sequence (Lq {lq}, Lk {lk})")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"flash backward: B*H = {b * h} > {_MAX_GRID_Y}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)) + (
+                (("o", o),) if dd is None else ()):
+            _check_async_copies(name, t)
     return _BwdArgs(
         q=_ptr(q), k=_ptr(k), v=_ptr(v), bias=_ptr(bias), o=_ptr(o),
         dout=_ptr(do), lse=_ptr(lse), dd=_ptr(dd),

@@ -241,8 +241,10 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
         block_q, block_k, causal, window = ctx.geometry
-        if g.stride(-1) != 1:  # the kernels read head_dim with stride 1
-            g = g.contiguous()
+        from kubeflow_tpu_torch.kernels.flash_bwd import readable_in_place
+
+        if not readable_in_place(g):  # a copy the kernels can read
+            g = g.clone(memory_format=torch.contiguous_format)
         dq, dk, dv, dbias = flash_backward(
             q, k, v, bias, out, lse, g, block_q, block_k, causal,
             window=window, want_dbias=ctx.needs_input_grad[3])

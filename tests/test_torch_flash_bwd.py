@@ -153,3 +153,54 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kb.flash_bwd_dkv(q, k, v, bias, q, g, lse, None, True)
     assert [x.launches for x in (kb.FLASH_BWD_DD, kb.FLASH_BWD_DQ,
                                  kb.FLASH_BWD_DKV)] == before
+
+
+def _view(dtype, offset=0, row=32, head_dim=32, transpose=False):
+    """A (1, 4, 1, head_dim) view of a flat buffer: rows `row` elements
+    apart from `offset` on, or head_dim-major when `transpose`."""
+    flat = torch.zeros(offset + 4 * max(row, head_dim), dtype=dtype)
+    if transpose:
+        return flat[offset:offset + 4 * head_dim].view(
+            1, head_dim, 1, 4).transpose(1, 3)
+    return flat[offset:offset + 4 * row].view(1, 4, 1, row)[..., :head_dim]
+
+
+# bf16 rows go to the card 16 bytes at a time: a 16-byte-aligned start and
+# strides of whole 8-element groups; f32 is read by stride as it comes
+@pytest.mark.parametrize("dtype,view,readable", [
+    (torch.bfloat16, {}, True),
+    (torch.bfloat16, {"offset": 8}, True),
+    (torch.bfloat16, {"offset": 1}, False),
+    (torch.bfloat16, {"row": 36}, False),
+    (torch.bfloat16, {"row": 40}, True),
+    (torch.bfloat16, {"transpose": True}, False),
+    (torch.float32, {"offset": 1, "row": 33}, True),
+    (torch.float32, {"transpose": True}, False),
+])
+def test_readable_in_place(dtype, view, readable):
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+
+    assert kb.readable_in_place(_view(dtype, **view)) is readable
+
+
+def test_backward_hands_the_kernels_a_readable_grad(monkeypatch):
+    """autograd may hand over dO as a misaligned view: the backward copies
+    it (values unchanged) instead of letting the kernel wrappers refuse it."""
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+
+    seen = []
+
+    def capture(q, k, v, bias, o, lse, g, *args, **kwargs):
+        seen.append(g)
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v), None)
+
+    monkeypatch.setattr(tra, "flash_backward", capture)
+    q, k, v, bias, _ = (torch.from_numpy(a).to(torch.bfloat16)
+                        for a in make_inputs(4, 4))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = tra.flash_attention(*leaves, bias, block=BLOCK, causal=True)
+    g = torch.randn(1 + out.numel()).to(out.dtype)[1:].view(out.shape)
+    assert not kb.readable_in_place(g)
+    torch.autograd.grad(out, leaves, g)
+    assert kb.readable_in_place(seen[0]) and torch.equal(seen[0], g)

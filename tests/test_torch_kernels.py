@@ -58,10 +58,13 @@ def test_kernel_matches_plain_on_card(dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain_on_card(dtype):
     """flash_bwd_dd, flash_bwd_dq and flash_bwd_dkv (both D forms) against
-    flash_backward_plain. Tolerance: 1e-4 plus, of the grad's largest
-    magnitude, 1e-4 in f32 (sums in another order) or four bf16 ulps in
-    bf16 (p and ds are rounded to bf16 before their products on both sides,
-    and an f32 difference in the last bit can round them one ulp apart)."""
+    flash_backward_plain: the f32 FMA kernels in f32, the tensor-core
+    kernels in bf16. Tolerance: 1e-4 plus, of the grad's largest magnitude,
+    1e-4 in f32 (sums in another order) or four bf16 ulps in bf16 (p and ds
+    are rounded to bf16 before their products on both sides, and an f32
+    difference in the last bit can round them one ulp apart). A second call
+    on the same inputs must agree bit for bit (no atomics); L = 333 is a
+    multiple of no tile; in bf16 a misaligned view is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from kubeflow_tpu_torch.kernels import flash_bwd as kb
@@ -83,7 +86,8 @@ def test_backward_kernels_match_plain_on_card(dtype):
                                        (65, 130, False, 0),
                                        (130, 65, False, 0),
                                        (200, 200, True, 33),
-                                       (150, 200, True, 100)):
+                                       (150, 200, True, 100),
+                                       (333, 333, True, 0)):
             q = torch.randn((2, lq, 3, d), generator=gen, device="cuda")
             k, v = (torch.randn((2, lk, 3, d), generator=gen, device="cuda")
                     for _ in range(2))
@@ -119,10 +123,18 @@ def test_backward_kernels_match_plain_on_card(dtype):
                     if want_dbias:
                         dbias = dbh.view(2, 3, lk).sum(1)[:, None, None]
                         close("dbias", dbias, want[3], case + (form,))
+                        again = (kb.flash_bwd_dq(q, k, v, bias, o, g_view,
+                                                 lse, dd_in, causal, window),
+                                 *kb.flash_bwd_dkv(q, k, v, bias, o, g_view,
+                                                   lse, dd_in, causal,
+                                                   window))
+                        for name, x, y in zip(("dq", "dk", "dv", "dbias"),
+                                              (dq, dk, dv, dbh), again):
+                            assert torch.equal(x, y), (name, case, form)
                     else:
                         assert dbh is None
             assert [c.launches for c in counters] == [
-                before[0] + 1, before[1] + 4, before[2] + 4]
+                before[0] + 1, before[1] + 6, before[2] + 6]
     with pytest.raises(ValueError, match="stride"):
         x = torch.zeros((1, 4, 1, 32), device="cuda", dtype=dtype)
         lse = torch.zeros((1, 1, 4), device="cuda")
@@ -131,3 +143,10 @@ def test_backward_kernels_match_plain_on_card(dtype):
         kb.flash_bwd_dq(x, x, x, torch.zeros((1, 1, 1, 4), device="cuda",
                                             dtype=dtype),
                         x, strided, lse, lse, True)
+    if dtype == torch.bfloat16:  # 16-byte cp.async needs aligned rows
+        flat = torch.zeros(1 + 4 * 32, device="cuda", dtype=dtype)
+        shifted = flat[1:].view(1, 4, 1, 32)   # storage offset 1: 2 bytes
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kb.flash_bwd_dkv(x, x, x, torch.zeros((1, 1, 1, 4), device="cuda",
+                                                  dtype=dtype),
+                             x, shifted, lse, lse, True)
