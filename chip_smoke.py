@@ -42,6 +42,8 @@ result.
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import math
 import subprocess
@@ -108,51 +110,86 @@ def ptxas_summary(report: str) -> str:
             f"{spills} bytes of spill stores")
 
 
-def tensor_core_report(report: str, card: str) -> tuple[int, dict]:
+# each dtype's route, read from the mangled names of the built kernels:
+# (pattern; group 1 the kernel, group 2 the dtype it is templated on, empty
+# for the tensor-core kernels, which take bfloat16 only; route)
+ROUTE_PATTERNS = (
+    (r"(flash_fwd)_kernelI(f|13__nv_bfloat16)L", "CUDA-core FMA"),
+    (r"(flash_fwd)_tc_kernelIL()", "tensor cores (mma.sync)"),
+    (r"(flash_bwd_dd)_kernelI(f|13__nv_bfloat16)E",
+     "CUDA cores, element loads"),
+    (r"(flash_bwd_dd)_vec_kernelI(f|13__nv_bfloat16)L",
+     "CUDA cores, 16-byte loads"),
+    (r"(flash_bwd_(?:dq|dkv))_kernelI(f|13__nv_bfloat16)L", "CUDA-core FMA"),
+    (r"(flash_bwd_(?:dq|dkv))_tc_kernelIL()", "tensor cores (mma.sync)"),
+)
+_DTYPE_OF = {"f": "float32", "13__nv_bfloat16": "bfloat16", "": "bfloat16"}
+# the tensor-core instantiations each source must hold: (source, pattern;
+# groups kernel, head_dim, D-from-O flag (backward only), expected count)
+TC_INSTANTIATIONS = (
+    ("flash_fwd.cu", r"(flash_fwd)_tc_kernelILi(\d+)E()", 4),
+    ("flash_bwd.cu", r"(flash_bwd_(?:dq|dkv))_tc_kernelILi(\d+)ELb([01])E",
+     16),
+)
+
+
+def tensor_core_report(card: str) -> tuple[int, dict]:
     """Print registers, spills and shared memory of every tensor-core
-    instantiation of dq and dkv. Return the spill bytes at D = 64, the
-    training head_dim, and each dtype's route as the built library holds
-    it: {dtype: {kernel: (route, instantiations)}}, from the kernels'
-    names (the tensor-core kernels take bfloat16 only, the FMA kernels are
-    templated on the dtype)."""
+    instantiation of the forward and of dq/dkv, from nvcc's ptxas reports.
+    Return the spill bytes at D = 64, the training head_dim, and each
+    dtype's routes as the built libraries hold them: {dtype: {kernel:
+    {route: instantiations}}}."""
     import re
 
     import torch
 
     from kubeflow_tpu_torch.kernels import flash_bwd as kb
+    from kubeflow_tpu_torch.kernels import flash_fwd as kf
+    from kubeflow_tpu_torch.kernels.build import report_path
 
     spill64 = 0
     rows = []
     routes: dict = {}
-    dtypes = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
-    for name, (regs, st, ld) in ptxas_kernels(report).items():
-        fma = re.search(
-            r"(flash_bwd_(?:dd|dq|dkv))_kernelI(f|13__nv_bfloat16)[EL]", name)
-        if fma:
-            per = routes.setdefault(dtypes[fma.group(2)], {})
-            route, n = per.get(fma.group(1), ("CUDA-core FMA", 0))
-            per[fma.group(1)] = (route, n + 1)
-        m = re.search(r"(flash_bwd_(dq|dkv))_tc_kernelILi(\d+)ELb([01])E",
-                      name)
-        if not m:
-            continue
-        kernel, d, from_o = m.group(1), int(m.group(3)), m.group(4) == "1"
-        per = routes.setdefault("bfloat16", {})
-        route, n = per.get(kernel, ("tensor cores (mma.sync)", 0))
-        per[kernel] = (route, n + 1)
-        smem = kb.smem_bytes(kernel, torch.bfloat16, d, from_o)
-        rows.append((kernel, d, from_o, regs, st, ld, smem))
-        if d == 64:
-            spill64 += st + ld
-    if len(rows) != 16:
-        raise AssertionError(f"ptxas reported {len(rows)} tensor-core "
-                             "instantiations of dq/dkv, expected 16")
-    for kernel, d, from_o, regs, st, ld, smem in sorted(rows):
-        print(f"  {kernel:13s} bf16 D={d:3d} "
-              f"{'loop2' if from_o else 'ddpre'}: {regs} registers, "
+    for source, pattern, expected in TC_INSTANTIATIONS:
+        found = 0
+        for name, (regs, st, ld) in ptxas_kernels(
+                report_path(source).read_text()).items():
+            for route_pattern, route in ROUTE_PATTERNS:
+                m = re.search(route_pattern, name)
+                if m:
+                    per = routes.setdefault(_DTYPE_OF[m.group(2)], {})
+                    per = per.setdefault(m.group(1), {})
+                    per[route] = per.get(route, 0) + 1
+            m = re.search(pattern, name)
+            if not m:
+                continue
+            kernel, d, form = m.group(1), int(m.group(2)), m.group(3)
+            smem = (kf.smem_bytes(torch.bfloat16, d) if kernel == "flash_fwd"
+                    else kb.smem_bytes(kernel, torch.bfloat16, d,
+                                       form == "1"))
+            rows.append((kernel, d, {"": "", "0": "ddpre", "1": "loop2"}[form],
+                         regs, st, ld, smem))
+            found += 1
+            if d == 64:
+                spill64 += st + ld
+        if found != expected:
+            raise AssertionError(f"ptxas reported {found} tensor-core "
+                                 f"instantiations in {source}, expected "
+                                 f"{expected}")
+    for kernel, d, form, regs, st, ld, smem in sorted(rows):
+        print(f"  {kernel:13s} bf16 D={d:3d} {form:5s}: {regs} registers, "
               f"{st} bytes spill stores, {ld} bytes spill loads, {smem} bytes "
               f"shared memory [{card}]")
     return spill64, routes
+
+
+def route_line(routes: dict, dtype: str, kernels) -> str:
+    """`kernel on route (n built)` for each kernel, from tensor_core_report's
+    routes."""
+    return ", ".join(
+        f"{k} on " + " + ".join(f"{r} ({n} built)"
+                                for r, n in sorted(routes[dtype][k].items()))
+        for k in kernels)
 
 
 def tile_error(got, ref, tile: int = 64) -> float:
@@ -186,6 +223,64 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(fn, iters: int) -> tuple[list, float]:
+    """The device activities (kernels, copies, fills) of iters calls of
+    fn(), after a warmup, from a torch.profiler trace: ([(name, start_us,
+    duration_us)], host seconds of the traced calls to their last
+    synchronize). CUPTI records every launch on the card, the ctypes
+    wrappers' included. Raises if the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [(e.name, e.time_range.start, e.time_range.elapsed_us())
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return events, wall
+
+
+def device_ms(fn, iters: int, attempts: int = 3) -> float:
+    """Device time of one fn() call: for each activity name in a trace of
+    iters calls, its mean duration times the times a call runs it
+    (round(count / iters)), summed. A trace can lose an activity at its
+    edge (19 of 20 on the card, and once none), which this rounding
+    absorbs; an empty trace is retried, up to `attempts` times."""
+    for attempt in range(attempts):
+        try:
+            events, _ = device_events(fn, iters)
+            break
+        except AssertionError:
+            if attempt == attempts - 1:
+                raise
+    by_name: dict = {}
+    for name, _, dur in events:
+        by_name.setdefault(name, []).append(dur)
+    return sum(sum(d) / len(d) * round(len(d) / iters)
+               for d in by_name.values()) / 1e3
+
+
+def busy_us(events) -> float:
+    """The time the device was busy: the union of the activities'
+    intervals."""
+    busy, end = 0.0, -math.inf
+    for _, start, dur in sorted(events, key=lambda e: e[1]):
+        stop = start + dur
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
 
 
 def live_pairs(lq, lk, causal, window) -> int:
@@ -257,7 +352,8 @@ def make_attention_inputs(b, l, h, d, dtype, pad, gen):
 
 
 def sdpa_call(q, k, v, bias, causal, window):
-    """One PyTorch library call for the same function (yardstick only)."""
+    """One PyTorch library call for the same function (yardstick only): the
+    bias, causal mask and window folded into an additive mask."""
     import torch
     import torch.nn.functional as F
 
@@ -272,9 +368,19 @@ def sdpa_call(q, k, v, bias, causal, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
-def phase_kernels(peaks, card: str) -> dict:
+def sdpa_causal_call(q, k, v):
+    """SDPA with is_causal=True and no mask (yardstick only): the same
+    function where the bias is zero and there is no window, and SDPA's
+    fastest backend."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+
+def phase_kernels(peaks, card: str, routes: dict) -> dict:
     """Kernel vs plain version on the card. Returns the record of the
-    training path's shape."""
+    training path's shape (bf16). `routes` is tensor_core_report's."""
     import torch
 
     from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
@@ -286,6 +392,7 @@ def phase_kernels(peaks, card: str) -> dict:
         ("prefill", GEN_BATCH, GEN_PROMPT, 0, "float32", 0),
         ("logits", LOGITS_BATCH, LOGITS_LEN, 0, "float32", LOGITS_PAD),
         ("train", TRAIN_BATCH, TRAIN_LEN, 0, "bfloat16", 0),
+        ("train", TRAIN_BATCH, TRAIN_LEN, 0, "float32", 0),
     ]
     for l in (17, 128, 1024):
         for window in (0, 100):
@@ -294,7 +401,15 @@ def phase_kernels(peaks, card: str) -> dict:
                               max(1, min(16, l // 8))))
     h, d = 12, 64
     print("phase 3: flash_fwd kernel vs plain version (B, L, H=12, D=64, "
-          "causal, pad bias on the last keys of the last row)")
+          "causal, pad bias on the last keys of the last row; max-abs "
+          "tolerance f32 1e-4, bf16 2e-2; per block of one batch row, head "
+          f"and 64 positions ||got - ref|| within {TILE_TOL['float32']:g} "
+          f"(f32) or {TILE_TOL['bfloat16']:g} (bf16) of ||ref||; times: the "
+          "loop's ms per call by CUDA events, dev the device time per call "
+          "from a torch.profiler trace)", flush=True)
+    for dt in ("bfloat16", "float32"):
+        print(f"  route {dt} (the built library's instantiations): "
+              + route_line(routes, dt, ["flash_fwd"]), flush=True)
     records = {}
     for tag, b, l, window, dt, pad in cases:
         dtype = getattr(torch, dt)
@@ -304,29 +419,55 @@ def phase_kernels(peaks, card: str) -> dict:
         torch.cuda.synchronize()
         err_o = (o_k.float() - o_p.float()).abs().max().item()
         err_l = (lse_k - lse_p).abs().max().item()
-        ok = math.isfinite(err_o) and err_o <= tol[dt] and err_l <= tol[dt]
+        tile = tile_error(o_k.transpose(1, 2), o_p.transpose(1, 2))
+        typical = o_p.float().abs().median().item()
+        same = None
+        if tag == "train":  # no atomics: a second call agrees bit for bit
+            o_2, lse_2 = flash_fwd(q, k, v, bias, True, window)
+            same = torch.equal(o_k, o_2) and torch.equal(lse_k, lse_2)
+        ok = (math.isfinite(err_o) and err_o <= tol[dt] and err_l <= tol[dt]
+              and tile <= TILE_TOL[dt] and same is not False)
         iters = 20 if l >= 1024 else 50
-        ms = time_ms(lambda: flash_fwd(q, k, v, bias, True, window), iters)
-        plain_ms = time_ms(
-            lambda: flash_forward_plain(q, k, v, bias, 128, True, window),
-            iters)
-        lib_ms = None
+        kernel = functools.partial(flash_fwd, q, k, v, bias, True, window)
+        plain = functools.partial(flash_forward_plain, q, k, v, bias, 128,
+                                  True, window)
+        ms, dev = time_ms(kernel, iters), device_ms(kernel, iters)
+        plain_ms = time_ms(plain, iters)
+        lib = lib_dev = causal = causal_dev = None
         if tag != "logits" and (tag != "sweep" or l == 1024):
-            lib_ms = time_ms(sdpa_call(q, k, v, bias, True, window), iters)
+            call = sdpa_call(q, k, v, bias, True, window)
+            lib, lib_dev = time_ms(call, iters), device_ms(call, iters)
+        if pad == 0 and window == 0:
+            call = sdpa_causal_call(q, k, v)
+            causal, causal_dev = time_ms(call, iters), device_ms(call, iters)
         bound_ms, bound_by = attention_bound(b, h, l, l, d, dt, True, window,
                                              peaks)
+        lib_s, lib_dev_s, causal_s, causal_dev_s = (
+            "-" if x is None else f"{x:.5f}"
+            for x in (lib, lib_dev, causal, causal_dev))
         print(f"  {tag:8s} B={b} L={l:5d} window={window:3d} {dt:9s} "
               f"err_o={err_o:.3e} err_lse={err_l:.3e} (tol {tol[dt]:g}) "
-              f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-              f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.5f}'} "
+              f"kernel_ms={ms:.5f} dev={dev:.5f} plain_ms={plain_ms:.5f} "
+              f"sdpa_masked_ms={lib_s} dev={lib_dev_s} "
+              f"sdpa_causal_ms={causal_s} dev={causal_dev_s} "
               f"bound_ms={bound_ms:.5f} ({bound_by}) [{card}]", flush=True)
+        print(f"  {'':8s} worst 64-position block: ||err||/||ref|| = "
+              f"{tile:.3e} (limit {TILE_TOL[dt]:g}); median |O| "
+              f"{typical:.3g}"
+              + ("" if same is None else
+                 f"; O and lse bit-equal over two calls: {same}")
+              + f" [{card}]", flush=True)
         if not ok:
             raise AssertionError(
                 f"flash_fwd disagrees with the plain version: {tag} B={b} "
-                f"L={l} window={window} {dt}: O {err_o}, lse {err_l}")
+                f"L={l} window={window} {dt}: O {err_o}, lse {err_l}, worst "
+                f"block {tile}, bit-equal over two calls {same}")
         records[(tag, l, window, dt)] = {
             "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "device_ms": dev, "library_device_ms": lib_dev,
+            "library_causal_ms": causal, "library_causal_device_ms":
+                causal_dev,
         }
     return records[("train", TRAIN_LEN, 0, "bfloat16")]
 
@@ -371,10 +512,10 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
           f"or {TILE_TOL['bfloat16']:g} (bf16) of ||ref||)", flush=True)
     for dt in ("bfloat16", "float32"):
         print(f"  route {dt} (the built library's instantiations): "
-              + ", ".join(f"{k} on {r} ({n} built)"
-                          for k, (r, n) in sorted(routes[dt].items())),
-              flush=True)
+              + route_line(routes, dt, ["flash_bwd_dd", "flash_bwd_dq",
+                                        "flash_bwd_dkv"]), flush=True)
     records = {}
+    kb.FLASH_BWD_DD.forms.clear()
     for b, l in ((2, 1024), (TRAIN_BATCH, TRAIN_LEN)):
         for dt in ("float32", "bfloat16"):
             for window in (0, 100):
@@ -439,16 +580,18 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
                 bad.update({f"{n} block": t for n, (t, _, _) in tiles.items()
                             if not t <= TILE_TOL[dt]})
                 iters = 10 if l >= TRAIN_LEN else 20
-                t_dd = time_ms(lambda: kb.flash_bwd_dd(o, g), iters)
-                times = {"flash_bwd_dd": t_dd}
+                calls = {"flash_bwd_dd": functools.partial(kb.flash_bwd_dd,
+                                                           o, g)}
                 for form, dd_in in runs.items():
-                    times[f"flash_bwd_dq/{form}"] = time_ms(
-                        lambda: kb.flash_bwd_dq(q, k, v, bias, o, g, lse,
-                                                dd_in, True, window), iters)
-                    times[f"flash_bwd_dkv/{form}"] = time_ms(
-                        lambda: kb.flash_bwd_dkv(q, k, v, bias, o, g, lse,
-                                                 dd_in, True, window,
-                                                 False), iters)
+                    calls[f"flash_bwd_dq/{form}"] = functools.partial(
+                        kb.flash_bwd_dq, q, k, v, bias, o, g, lse, dd_in,
+                        True, window)
+                    calls[f"flash_bwd_dkv/{form}"] = functools.partial(
+                        kb.flash_bwd_dkv, q, k, v, bias, o, g, lse, dd_in,
+                        True, window, False)
+                times = {n: time_ms(f, iters) for n, f in calls.items()}
+                devs = {n: device_ms(f, iters) for n, f in calls.items()}
+                t_dd = times["flash_bwd_dd"]
                 plain_dd = time_ms(
                     lambda: torch.einsum("blhd,blhd->bhl", g.float(),
                                          o.float()), iters)
@@ -456,10 +599,16 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
                     lambda: flash_backward_plain(q, k, v, bias, o, lse, g,
                                                  128, True, window, False),
                     max(3, iters // 4))
-                lib_dd = time_ms(lambda: (g * o).sum(-1), iters)
+                def lib_dd_call():
+                    return (g * o).sum(-1)
+
+                lib_dd = time_ms(lib_dd_call, iters)
+                lib_dd_dev = device_ms(lib_dd_call, iters)
                 fwd_bwd, fwd_only = sdpa_backward_call(q, k, v, bias, g,
                                                        True, window)
                 lib_bwd = time_ms(fwd_bwd, iters) - time_ms(fwd_only, iters)
+                lib_bwd_dev = (device_ms(fwd_bwd, iters)
+                               - device_ms(fwd_only, iters))
                 for form, from_o in (("ddpre", False), ("loop2", True)):
                     bounds = backward_bounds(b, h, l, l, d, dt, True, window,
                                              peaks, from_o, False)
@@ -470,21 +619,24 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
                         key = (name if name == "flash_bwd_dd"
                                else f"{name}/{form}")
                         bound_ms, bound_by = bounds[name]
+                        is_dd = name == "flash_bwd_dd"
                         rec = {
                             "max_abs_err": errs[key], "ms": times[key],
-                            "plain_ms": (plain_dd if name == "flash_bwd_dd"
-                                         else plain_ms),
+                            "plain_ms": plain_dd if is_dd else plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by,
-                            "library_ms": (lib_dd if name == "flash_bwd_dd"
-                                           else lib_bwd),
+                            "library_ms": lib_dd if is_dd else lib_bwd,
+                            "device_ms": devs[key],
+                            "library_device_ms": (lib_dd_dev if is_dd
+                                                  else lib_bwd_dev),
                         }
                         records[(name, form, b, l, dt, window)] = rec
                         print(f"  {key:20s} B={b} L={l:5d} window={window:3d}"
                               f" {dt:9s} err={errs[key]:.3e} (scale "
                               f"{scales[key]:.3g}) ms={times[key]:.5f} "
-                              f"bound_ms={bound_ms:.5f} ({bound_by}) "
-                              f"plain_ms={rec['plain_ms']:.5f} library_ms="
-                              f"{rec['library_ms']:.5f} [{card}]",
+                              f"dev={devs[key]:.5f} bound_ms={bound_ms:.5f} "
+                              f"({bound_by}) plain_ms={rec['plain_ms']:.5f} "
+                              f"library_ms={rec['library_ms']:.5f} dev="
+                              f"{rec['library_device_ms']:.5f} [{card}]",
                               flush=True)
                         if key in tiles:
                             tile, out, typical = tiles[key]
@@ -494,9 +646,14 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
                                   f"{typical:.3g} [{card}]", flush=True)
                 pair = (times['flash_bwd_dq/ddpre']
                         + times['flash_bwd_dkv/ddpre'])
+                pair_dev = (devs['flash_bwd_dq/ddpre']
+                            + devs['flash_bwd_dkv/ddpre'])
                 print(f"  B={b} L={l} window={window} {dt}: dq+dkv "
                       f"{pair:.5f} ms ({pair / lib_bwd:.2f}x SDPA's "
-                      f"backward) (+dd {t_dd:.5f}), loop2 "
+                      f"backward; device {pair_dev:.5f} ms, "
+                      f"{pair_dev / lib_bwd_dev:.2f}x) (+dd {t_dd:.5f}, "
+                      f"device {devs['flash_bwd_dd']:.5f} vs "
+                      f"{lib_dd_dev:.5f} for (dO*O).sum(-1)), loop2 "
                       f"{times['flash_bwd_dq/loop2'] + times['flash_bwd_dkv/loop2']:.5f}"
                       f" ms; SDPA backward {lib_bwd:.5f} ms; plain backward "
                       f"{plain_ms:.5f} ms [{card}]", flush=True)
@@ -504,6 +661,12 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
                     raise AssertionError(
                         f"backward kernels disagree with the plain version "
                         f"at B={b} L={l} window={window} {dt}: {bad}")
+    forms = kb.FLASH_BWD_DD.forms
+    print(f"  flash_bwd_dd launches by form over phase 5: {forms} "
+          f"(contiguous inputs: the 16-byte-load form) [{card}]", flush=True)
+    if set(forms) != {"vector"}:
+        raise AssertionError(f"flash_bwd_dd ran other than its 16-byte-load "
+                             f"form on contiguous inputs: {forms}")
     return {name: records[(name, "ddpre", TRAIN_BATCH, TRAIN_LEN,
                            "bfloat16", 0)]
             for name in ("flash_bwd_dd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -560,16 +723,25 @@ def phase_train(card: str) -> tuple[dict, float]:
         return out
 
     trainer.train_step = timed_step
+    # the peak is the fit's: what earlier phases left for the collector
+    # (phase 4's models) goes first
+    held = torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    print(f"  device memory allocated before the fit: {held:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after "
+          f"gc.collect() [{card}]", flush=True)
     torch.cuda.reset_peak_memory_stats()
     log = io.StringIO()
     for kern in KERNELS.values():
         kern.launches = 0      # the training path's run starts here
+        kern.forms.clear()
     t_fit = time.perf_counter()
     with contextlib.redirect_stdout(log):
         state, final = trainer.fit(ds)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     launches = {name: kern.launches for name, kern in KERNELS.items()}
+    dd_forms = dict(KERNELS["flash_bwd_dd"].forms)
     peak = torch.cuda.max_memory_allocated() / 2**30
     lines = [metrics.parse_line(x) for x in log.getvalue().splitlines()]
     losses = [x["loss"] for x in lines if "loss" in x]
@@ -581,7 +753,8 @@ def phase_train(card: str) -> tuple[dict, float]:
           f"min {steady.min() * 1e3:.2f}, max {steady.max() * 1e3:.2f}); "
           f"{TRAIN_BATCH * TRAIN_LEN / step_ms * 1e3:.1f} tokens/s; first "
           f"step {(step_ends[0] - t_fit) * 1e3:.1f} ms; peak memory "
-          f"{peak:.2f} GiB; launches {launches} [{card}]", flush=True)
+          f"{peak:.2f} GiB; launches {launches}; flash_bwd_dd by form "
+          f"{dd_forms} [{card}]", flush=True)
     n_eval = 2 * cfg.num_layers   # the epoch's eval and the final eval
     want = {"flash_fwd": cfg.num_layers * TRAIN_STEPS + n_eval,
             **{n: cfg.num_layers * TRAIN_STEPS
@@ -607,10 +780,48 @@ def phase_train(card: str) -> tuple[dict, float]:
           f"[{card}]", flush=True)
     if step != TRAIN_STEPS or not same:
         raise AssertionError("checkpoint round trip changed the params")
+    batch = tuple(torch.as_tensor(a[:TRAIN_BATCH], device="cuda")
+                  for a in (ds.x_train, ds.y_train))
+    profile_step(lambda: real_step(state, batch), step_ms, card)
     del state, restored, fresh, other, trainer, model
     torch.cuda.empty_cache()
     phase_grad_check(cfg, ds, card)
     return launches, step_ms
+
+
+def profile_step(step, step_ms: float, card: str) -> None:
+    """One training step under torch.profiler (device activity only): the
+    ten device ops that take the most time, each hand-written kernel's
+    device time per launch, and the device's idle share of the step."""
+    import re
+
+    events, wall = device_events(step, 1)
+    by_name: dict = {}
+    for name, _, dur in events:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + dur, n + 1)
+    busy = busy_us(events)
+    print(f"  profiled step: {wall * 1e3:.2f} ms host wall (unprofiled "
+          f"median {step_ms:.2f} ms), device busy {busy / 1e3:.2f} ms, idle "
+          f"share {100 * (1 - busy / (wall * 1e6)):.1f}%, {len(events)} "
+          f"device activities [{card}]", flush=True)
+    print("  top ten device ops of the step (ms, launches, share of the "
+          "busy time):")
+    for name, (total, n) in sorted(by_name.items(),
+                                   key=lambda x: -x[1][0])[:10]:
+        print(f"    {total / 1e3:9.4f} ms {n:4d}x {100 * total / busy:5.1f}% "
+              f"{name[:110]}")
+    ours: dict = {}
+    for name, (total, n) in by_name.items():
+        m = re.search(r"(flash_fwd|flash_bwd_dd|flash_bwd_dq|flash_bwd_dkv)"
+                      r"(?:_vec|_tc)?_kernel", name)
+        if m and "pytorch_flash" not in name:
+            t, c = ours.get(m.group(1), (0.0, 0))
+            ours[m.group(1)] = (t + total, c + n)
+    print("  hand-written kernels in the step: " + ", ".join(
+        f"{k} {t / c / 1e3:.5f} ms x {c} = {t / 1e3:.3f} ms "
+        f"({100 * t / busy:.1f}% of busy)" for k, (t, c) in sorted(
+            ours.items())) + f" [{card}]", flush=True)
 
 
 def phase_grad_check(cfg, ds, card: str) -> None:
@@ -851,10 +1062,9 @@ def main() -> int:
         report = report_path(src)
         if report.exists():
             print(f"  {src}: {ptxas_summary(report.read_text())}")
-    spill64, routes = tensor_core_report(
-        report_path(KERNELS["flash_bwd_dq"].source).read_text(), card)
+    spill64, routes = tensor_core_report(card)
 
-    timings = {"flash_fwd": phase_kernels(peaks, card)}
+    timings = {"flash_fwd": phase_kernels(peaks, card, routes)}
     serve_launches = phase_serve(card)
     print(f"  serving path: flash_fwd launches {serve_launches} [{card}]",
           flush=True)
@@ -871,6 +1081,10 @@ def main() -> int:
           f"x {per_step} launches each; SDPA forward + backward and "
           f"(dO*O).sum(-1) would take {lib_ms:.2f} ms. Share of the bound: "
           + ", ".join(f"{n} {100 * t['bound_ms'] / t['ms']:.2f}%"
+                      for n, t in timings.items()) + "; by device time: "
+          + ", ".join(f"{n} {t['device_ms']:.5f} ms "
+                      f"({100 * t['bound_ms'] / t['device_ms']:.2f}% of the "
+                      f"bound; library {t['library_device_ms']:.5f} ms)"
                       for n, t in timings.items()) + f" [{card}]",
           flush=True)
 

@@ -35,7 +35,9 @@
 // operations per (q, k, d); against ~L·H·D·8 bytes per row that must move, that
 // is operation-bound at every training length: on the tensor cores in bf16
 // (989 TFLOP/s), on the CUDA cores in f32 (67 TFLOP/s). dd reads dO and O once
-// and does 2 operations per element: bound by bytes.
+// and does 2 operations per element: bound by bytes. It reads O and dO 16
+// bytes a lane where their rows allow (the vector form), one element a lane
+// otherwise (the scalar form).
 //
 // Both dtypes share the TPU kernels' two-pass structure: the TPU kernels
 // carried dq (or dk/dv/dbias) in VMEM scratch across a sequential grid axis;
@@ -78,6 +80,8 @@
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+
+#include "tc_bf16.cuh"
 
 // The argument block of every entry point (mirrored by a ctypes.Structure in
 // kubeflow_tpu_torch/kernels/flash_bwd.py; keep the two in the same order).
@@ -171,9 +175,10 @@ __device__ __forceinline__ void tile_dd(float* Ds, const float* dOs,
 
 // ------------------------------------------------------------------ dd
 
+// the scalar form, for o and dO whose rows the vector form cannot read 16
+// bytes at a time: one warp per (b·h, query row), WARPS rows per CTA
 template <typename T>
 __global__ void __launch_bounds__(NT) flash_bwd_dd_kernel(BwdArgs a) {
-  // one warp per (b·h, query row), WARPS rows per CTA
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long idx = (long long)blockIdx.x * WARPS + warp;
   if (idx >= (long long)a.B * a.H * a.Lq) return;  // uniform per warp
@@ -191,6 +196,59 @@ __global__ void __launch_bounds__(NT) flash_bwd_dd_kernel(BwdArgs a) {
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) a.dd_out[idx] = acc;
+}
+
+// Σ of the products of the 16 bytes of x and y, in f32
+__device__ __forceinline__ float dot16(const float4& x, const float4& y,
+                                       float) {
+  return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, x.x * y.x)));
+}
+__device__ __forceinline__ float dot16(const float4& x, const float4& y,
+                                       __nv_bfloat16) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(b[i]);
+    acc = fmaf(u.y, w.y, fmaf(u.x, w.x, acc));
+  }
+  return acc;
+}
+
+// the vector form: each lane reads 16 bytes of O and of dO (8 bf16 or 4
+// f32), D / that many lanes a row, so a warp reduces DD_ROWS rows at once.
+// Rows go in (b, position, head) order: for a contiguous (B, L, H, D) tensor
+// a warp reads one 512-byte run of each. D's (B, H, Lq) writes are 4-byte
+// stores H·Lq apart (0.4 MB at the training shape, merged in L2).
+template <typename T, int D>
+constexpr int DD_ROWS = 32 / (D * (int)sizeof(T) / 16);
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_bwd_dd_vec_kernel(BwdArgs a) {
+  constexpr int LPR = 32 / DD_ROWS<T, D>;  // lanes a row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r =
+      ((long long)blockIdx.x * WARPS + warp) * DD_ROWS<T, D> + lane / LPR;
+  const bool live = r < (long long)a.B * a.Lq * a.H;
+  const int h = (int)(r % a.H);
+  const int pos = (int)(r / a.H % a.Lq), b = (int)(r / a.H / a.Lq);
+  float acc = 0.f;
+  if (live) {
+    const int c = (lane % LPR) * (16 / (int)sizeof(T));
+    const float4 x = __ldg(reinterpret_cast<const float4*>(
+        static_cast<const T*>(a.o) + b * a.so[0] + pos * a.so[1] +
+        h * a.so[2] + c));
+    const float4 y = __ldg(reinterpret_cast<const float4*>(
+        static_cast<const T*>(a.dout) + b * a.sdo[0] + pos * a.sdo[1] +
+        h * a.sdo[2] + c));
+    acc = dot16(y, x, T{});
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && lane % LPR == 0)
+    a.dd_out[((long long)b * a.H + h) * a.Lq + pos] = acc;
 }
 
 // ------------------------------------------------------------------ dq
@@ -527,189 +585,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdArgs a) {
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int NT = 128;  // 4 warps, 16 rows of the CTA's 64 each
 constexpr int ROWS = 64;  // Q rows of a dq CTA, keys of a dkv CTA
 constexpr int BK = 64;    // keys per KV tile of the dq loop
-constexpr int PAD = 8;    // bf16 pad per shared row: 16 bytes
 
 // queries per Q tile of the dkv loop: 32 at D = 128 keeps the dk and dv sums
 // and the score tiles of a warp within the registers
 template <int D>
 constexpr int DKV_BQ = D > 64 ? 32 : 64;
-
-// a warp holds its 16 rows of q/dO (dq) or k/v (dkv) as A fragments
-template <int D>
-constexpr bool HOLD_ROWS = D <= 64;
-
-__device__ __forceinline__ unsigned saddr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared; 16 zero bytes where !ok (src-size 0)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   saddr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-// 4 bytes (one f32 of lse or D); zero where !ok
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   saddr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-
-// c (16×8 f32) += a (16×16 bf16, row-major) · b (16×8 bf16, col-major)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layouts of m16n8k16 (lane = 4·g + t): A holds (row g | g+8, cols
-// 2t, 2t+1 | 2t+8, 2t+9); B holds (k rows 2t, 2t+1 | 2t+8, 2t+9, col g); the
-// accumulator holds (row g, cols 2t, 2t+1) in c[0..1], row g+8 in c[2..3].
-
-// the A fragment of rows [r0, r0+16), cols [c0, c0+16) of a row-major tile
-template <int P>
-__device__ __forceinline__ void lds_a(uint32_t (&a)[4], const bf16* tile,
-                                      int r0, int c0, int lane) {
-  ldsm4(a, tile + (r0 + (lane & 15)) * P + c0 + (lane >> 4) * 8);
-}
-
-// B fragments of tile rows [n0, n0+16) as the n side, cols [c0, c0+16) as the
-// k side (B[k][n] = tile[n][k]): b[0..1] for n0..n0+7, b[2..3] for n0+8..
-template <int P>
-__device__ __forceinline__ void lds_b(uint32_t (&b)[4], const bf16* tile,
-                                      int n0, int c0, int lane) {
-  ldsm4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * P + c0 +
-               ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of tile rows [k0, k0+16) as the k side, cols [n0, n0+16) as the
-// n side (B[k][n] = tile[k][n], ldmatrix.trans): b[0..1] for cols n0..n0+7,
-// b[2..3] for n0+8..
-template <int P>
-__device__ __forceinline__ void lds_bt(uint32_t (&b)[4], const bf16* tile,
-                                       int k0, int n0, int lane) {
-  ldsm4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n0 +
-                 (lane >> 4) * 8);
-}
-
-// acc (16 × W) += A rows · Bt[0..W)ᵀ over D: A is the warp's 16 rows, held as
-// fragments or read from `at` at row r0; Bt a W × D tile
-template <int D, int W, bool HOLD>
-__device__ __forceinline__ void scores(float (&acc)[W / 8][4],
-                                       const uint32_t (&held)[HOLD ? D / 16 : 1][4],
-                                       const bf16* at, int r0, const bf16* bt,
-                                       int lane) {
-  constexpr int P = D + PAD;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    if constexpr (HOLD) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = held[kk][i];
-    } else {
-      lds_a<P>(a, at, r0, kk * 16, lane);
-    }
-#pragma unroll
-    for (int np = 0; np < W / 16; ++np) {
-      uint32_t b[4];
-      lds_b<P>(b, bt, np * 16, kk * 16, lane);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 × D) += X (16 × W, bf16 fragments from registers) · Bt (W × D tile)
-template <int D, int W>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const uint32_t (&x)[W / 16][4],
-                                           const bf16* bt, int lane) {
-  constexpr int P = D + PAD;
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk)
-#pragma unroll
-    for (int nd = 0; nd < D / 16; ++nd) {
-      uint32_t b[4];
-      lds_bt<P>(b, bt, kk * 16, nd * 16, lane);
-      mma(acc[2 * nd], x[kk], b[0], b[1]);
-      mma(acc[2 * nd + 1], x[kk], b[2], b[3]);
-    }
-}
-
-// the score accumulators (16 × W f32) as bf16 A fragments over W
-template <int W>
-__device__ __forceinline__ void to_a(uint32_t (&x)[W / 16][4],
-                                     const float (&s)[W / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk) {
-    x[kk][0] = pack(s[2 * kk][0], s[2 * kk][1]);
-    x[kk][1] = pack(s[2 * kk][2], s[2 * kk][3]);
-    x[kk][2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    x[kk][3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void zero(float (&x)[W][4]) {
-#pragma unroll
-  for (int i = 0; i < W; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
-}
-
-// rows [r0, r0 + R) of a (B, L, H, D) bf16 tensor (base at (b, 0, h, 0),
-// position stride sl) into an R × (D + PAD) tile, by 16-byte cp.async; rows
-// past L are zero-filled
-template <int D, int R>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base,
-                                          long long sl, int r0, int L) {
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
-  static_assert((R * CPR) % NT == 0, "whole chunks per thread");
-#pragma unroll
-  for (int j = 0; j < R * CPR / NT; ++j) {
-    const int i = threadIdx.x + j * NT;
-    const int r = i / CPR, c = i % CPR, g = r0 + r;
-    const bool ok = g < L;
-    cp16(dst + r * (D + PAD) + c * 8, base + (ok ? g * sl : 0) + c * 8, ok);
-  }
-}
 
 // f32 r of a (B·H, Lq) row (lse or D) from position r0; zero past Lq
 __device__ __forceinline__ void load_stat(float* dst, const float* row,
@@ -1134,6 +1016,25 @@ struct Dkv {
   }
 };
 
+template <typename T, int D>
+cudaError_t launch_dd_vec(const BwdArgs& a, cudaStream_t s) {
+  const long long rows = (long long)a.B * a.H * a.Lq;
+  const int per_cta = WARPS * DD_ROWS<T, D>;
+  const dim3 grid((unsigned)((rows + per_cta - 1) / per_cta));
+  return launch(flash_bwd_dd_vec_kernel<T, D>, grid, NT, 0, a, s);
+}
+
+template <typename T>
+cudaError_t dd_vec(const BwdArgs& a, cudaStream_t s) {
+  switch (a.D) {
+    case 16: return launch_dd_vec<T, 16>(a, s);
+    case 32: return launch_dd_vec<T, 32>(a, s);
+    case 64: return launch_dd_vec<T, 64>(a, s);
+    case 128: return launch_dd_vec<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // one switch over (dtype, D, D-from-O) for both tiled kernels: f(Op<T, D,
 // FROM_O>{}), or `bad` for a combination that has no kernel
 template <template <typename, int, bool> class Op, typename R, typename F>
@@ -1157,8 +1058,15 @@ R dispatch(int dtype, int d, bool from_o, R bad, F f) {
 // Each launches on `stream`, does not synchronise, and returns the launch's
 // cudaError_t (0 = success). dtype: 0 = f32, 1 = bf16.
 
-extern "C" int kft_flash_bwd_dd(const BwdArgs* a, void* stream) {
+// vector: 1 runs the 16-byte-load form (the caller checked that o's and dO's
+// rows allow it and D is one of 16, 32, 64, 128), 0 the scalar form
+extern "C" int kft_flash_bwd_dd(const BwdArgs* a, int vector, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector) {
+    if (a->dtype == 0) return dd_vec<float>(*a, s);
+    if (a->dtype == 1) return dd_vec<__nv_bfloat16>(*a, s);
+    return cudaErrorInvalidValue;
+  }
   const long long rows = (long long)a->B * a->H * a->Lq;
   const dim3 grid((unsigned)((rows + WARPS - 1) / WARPS));
   if (a->dtype == 0)

@@ -2,11 +2,11 @@
 
 Each source in ``kubeflow_tpu_torch/csrc/`` is compiled on first use into one
 shared library with a plain C interface, under ``kubeflow_tpu_torch/_build/``
-(listed in .gitignore), named by a hash of the source and the flags so an
-edited source is rebuilt. Kernels that share a source (the three backward
-kernels of ``flash_bwd.cu``) share its library. The target is ``sm_90a``
-(Hopper). No build error is swallowed: a failed compile raises with nvcc's
-output.
+(listed in .gitignore), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags so an edited source or header is rebuilt.
+Kernels that share a source (the three backward kernels of
+``flash_bwd.cu``) share its library. The target is ``sm_90a`` (Hopper). No
+build error is swallowed: a failed compile raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -30,19 +30,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 @dataclass
 class Kernel:
-    """One hand-written kernel: its source, the TPU kernel it replaces and
-    the number of times its wrapper has launched it."""
+    """One hand-written kernel: its source, the TPU kernel it replaces, the
+    number of times its wrapper has launched it and, for a kernel with more
+    than one form, the launches of each form."""
 
     name: str
     source: str        # file under csrc/
     replaces: str      # file:line of the Pallas kernel body
     launches: int = 0
+    forms: dict[str, int] = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
-    def count_launch(self) -> None:
+    def count_launch(self, form: str | None = None) -> None:
         with self._lock:
             self.launches += 1
+            if form is not None:
+                self.forms[form] = self.forms.get(form, 0) + 1
 
     @property
     def source_path(self) -> Path:
@@ -87,10 +91,12 @@ def sources(names: list[str] | None = None) -> list[str]:
 
 
 def library_path(source: str) -> Path:
-    """The library built from one source under csrc/."""
+    """The library built from one source under csrc/ (named by a hash of it,
+    the headers under csrc/ and the flags)."""
+    parts = [(_CSRC / source).read_bytes()]
+    parts += [h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        (_CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 

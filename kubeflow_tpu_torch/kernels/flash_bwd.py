@@ -15,17 +15,19 @@ products with f32 accumulation, fed by ldmatrix from shared-memory tiles
 that 16-byte cp.async copies fill two stages ahead, with p and ds rounded to
 bf16 where the TPU kernels round them. In float32 they stay f32 FMA on the
 CUDA cores, level with SDPA's f32 backward. Both are two deterministic
-passes (no atomics); csrc/flash_bwd.cu says more.
+passes (no atomics); csrc/flash_bwd.cu says more. flash_bwd_dd is bound by
+bytes: it reads O and dO 16 bytes a lane where their rows allow it, one
+element a lane otherwise (``FLASH_BWD_DD.forms`` counts which form ran).
 
 Inputs are the public layout: q, o, dO (B, Lq, H, D), k, v (B, Lk, H, D),
 one dtype (float32 or bfloat16), read by stride with a unit stride on D (so
 dO may come as autograd hands it over); in bfloat16 the tensors copied by
 16-byte cp.async also need a 16-byte-aligned start and batch, position and
-head strides that are multiples of 8 elements (``readable_in_place``;
-the autograd backward copies a dO that lacks them). bias (B, 1, 1, Lk) of the
-same dtype, contiguous; lse and D (B, H, Lq) float32, contiguous. dq, dk
-and dv come back contiguous in the input dtype, dbias per (b·h, key) in
-float32. Every launch is on the current stream and does not synchronise.
+head strides that are multiples of 8 elements (``readable_in_place`` of
+kernels/_layout.py; the autograd backward copies a dO that lacks them).
+bias (B, 1, 1, Lk) of the same dtype, contiguous; lse and D (B, H, Lq)
+float32, contiguous. dq, dk and dv come back contiguous in the input
+dtype, dbias per (b·h, key) in float32. Every launch is on the current stream and does not synchronise.
 The plain PyTorch version of the same functions is
 ``parallel.ring_attention.flash_backward_plain``.
 """
@@ -38,6 +40,10 @@ import math
 
 import torch
 
+from kubeflow_tpu_torch.kernels._layout import (  # noqa: F401
+    async_copy_fault,
+    readable_in_place,  # re-exported for callers of the backward
+)
 from kubeflow_tpu_torch.kernels.build import KERNELS, load
 
 FLASH_BWD_DD = KERNELS["flash_bwd_dd"]
@@ -67,7 +73,7 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use), load and declare the C entry points."""
     lib = load("flash_bwd_dq")
     args = ctypes.POINTER(_BwdArgs)
-    lib.kft_flash_bwd_dd.argtypes = [args, _p]
+    lib.kft_flash_bwd_dd.argtypes = [args, _i, _p]
     lib.kft_flash_bwd_dd.restype = _i
     for fn in (lib.kft_flash_bwd_dq, lib.kft_flash_bwd_dkv):
         fn.argtypes = [args, _i, _p]
@@ -104,35 +110,11 @@ def _strides(name: str, t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _async_copy_fault(t: torch.Tensor) -> str | None:
-    """What a (B, L, H, D) tensor lacks for the bf16 kernels' 16-byte
-    cp.async copies (a 16-byte-aligned start, and batch, position and head
-    strides that are multiples of 8 elements on dims longer than 1), or
-    None."""
-    if t.data_ptr() % 16:
-        return ("starts at an address that is not 16-byte aligned (storage "
-                f"offset {t.storage_offset()})")
-    for dim, what in enumerate(("batch", "position", "head")):
-        if t.shape[dim] > 1 and t.stride(dim) % 8:
-            return (f"has {what} stride {t.stride(dim)}, not a multiple of 8 "
-                    "elements")
-    return None
-
-
 def _check_async_copies(name: str, t: torch.Tensor) -> None:
-    fault = _async_copy_fault(t)
+    fault = async_copy_fault(t)
     if fault:
         raise ValueError(f"flash backward: {name} {fault}; the bf16 kernels "
                          "copy it 16 bytes at a time")
-
-
-def readable_in_place(t: torch.Tensor) -> bool:
-    """Whether the kernels can read the (B, L, H, D) tensor ``t`` as it is:
-    a unit head_dim stride and, in bfloat16, what the 16-byte copies need.
-    Where not, a contiguous copy (``clone``, which also realigns) can."""
-    if t.stride(3) != 1 and t.shape[3] != 1:
-        return False
-    return t.dtype != torch.bfloat16 or _async_copy_fault(t) is None
 
 
 def _args(q, k, v, bias, o, do, lse, dd, causal: bool,
@@ -204,7 +186,7 @@ def _args(q, k, v, bias, o, do, lse, dd, causal: bool,
         causal=int(causal), window=int(window), scale=1.0 / math.sqrt(d))
 
 
-def _launch(lib, fn, kernel, device, *call_args) -> None:
+def _launch(lib, fn, kernel, device, *call_args, form=None) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*call_args, stream)
@@ -212,11 +194,23 @@ def _launch(lib, fn, kernel, device, *call_args) -> None:
         raise RuntimeError(
             f"{kernel.name} launch failed: CUDA error {err} "
             f"({lib.kft_cuda_error_string(err).decode()})")
-    kernel.count_launch()
+    kernel.count_launch(form)
+
+
+def _dd_path(o: torch.Tensor, do: torch.Tensor) -> str:
+    """"vector" where flash_bwd_dd can read both tensors 16 bytes a lane (a
+    supported head_dim with unit stride, rows fit for 16-byte loads), else
+    "scalar"."""
+    if o.shape[3] in SUPPORTED_HEAD_DIMS and all(
+            t.stride(3) == 1 and async_copy_fault(t) is None for t in (o, do)):
+        return "vector"
+    return "scalar"
 
 
 def flash_bwd_dd(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """D = Σ_d dO∘O in float32, (B, H, Lq)."""
+    """D = Σ_d dO∘O in float32, (B, H, Lq). Reads 16 bytes a lane where o's
+    and dO's rows allow it ("vector"), one element a lane otherwise
+    ("scalar"); ``FLASH_BWD_DD.forms`` counts the launches of each."""
     for name, t in (("o", o), ("dO", do)):
         if not t.is_cuda or t.device != o.device:
             raise ValueError(f"flash_bwd_dd: {name} is on {t.device}, not "
@@ -233,9 +227,10 @@ def flash_bwd_dd(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
                  so=(_ll * 3)(*_strides("o", o)),
                  sdo=(_ll * 3)(*_strides("dO", do)),
                  B=b, H=h, Lq=lq, D=d, dtype=_DTYPES[o.dtype])
+    path = _dd_path(o, do)
     lib = _lib()
     _launch(lib, lib.kft_flash_bwd_dd, FLASH_BWD_DD, o.device,
-            ctypes.byref(a))
+            ctypes.byref(a), int(path == "vector"), form=path)
     return dd
 
 

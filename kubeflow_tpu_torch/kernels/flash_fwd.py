@@ -3,8 +3,12 @@
 Takes the public layout — q (B, Lq, H, D), k/v (B, Lk, H, D), bias
 (B, 1, 1, Lk), one dtype (float32 or bfloat16), contiguous, on one CUDA
 device — and returns (O (B, Lq, H, D), lse (B, H, Lq) float32). It launches
-on the current stream and does not synchronise. The plain PyTorch version of
-the same function is ``parallel.ring_attention.flash_forward_plain``.
+on the current stream and does not synchronise. float32 runs f32 FMA on the
+CUDA cores; bfloat16 runs on the tensor cores (mma.sync, fed by 16-byte
+cp.async copies, so q, k and v must also start 16-byte aligned:
+``readable_in_place`` of kernels/_layout.py, which the autograd forward
+ensures with a copy). The plain PyTorch version of the same function is
+``parallel.ring_attention.flash_forward_plain``.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import math
 
 import torch
 
+from kubeflow_tpu_torch.kernels._layout import async_copy_fault
 from kubeflow_tpu_torch.kernels.build import KERNELS, load
 
 FLASH_FWD = KERNELS["flash_fwd"]
@@ -31,9 +36,21 @@ def _lib() -> ctypes.CDLL:
     lib.kft_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                                   ctypes.c_float, p]
     lib.kft_flash_fwd.restype = i
+    lib.kft_flash_fwd_smem.argtypes = [i, i]
+    lib.kft_flash_fwd_smem.restype = ctypes.c_longlong
     lib.kft_cuda_error_string.argtypes = [i]
     lib.kft_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """The dynamic shared memory one launch takes, as the library computes
+    it."""
+    n = _lib().kft_flash_fwd_smem(_DTYPES[dtype], head_dim)
+    if n < 0:
+        raise ValueError(f"flash_fwd has no kernel for {dtype}, head_dim "
+                         f"{head_dim}")
+    return n
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,6 +91,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_fwd: empty sequence (Lq {lq}, Lk {lk})")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"flash_fwd: B*H = {b * h} > {_MAX_GRID_Y}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            fault = async_copy_fault(t)
+            if fault:
+                raise ValueError(f"flash_fwd: {name} {fault}; the bf16 kernel "
+                                 "copies it 16 bytes at a time")
     lib = _lib()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)

@@ -27,6 +27,8 @@ import os
 
 import torch
 
+from kubeflow_tpu_torch.kernels._layout import readable_in_place
+
 NEG_INF = -1e9
 
 # Backward selector, read at import like the JAX package's
@@ -227,10 +229,17 @@ def flash_backward(q, k, v, bias, o, lse, g, block_q: int = 128,
 class _FlashAttention(torch.autograd.Function):
     """``_flash`` with its custom VJP (``_flash_fwd``/``_flash_bwd``,
     :1416-1449): the forward saves q, k, v, bias, O and lse; the backward
-    rebuilds p from lse, with no forward replay and no O(L²) residual."""
+    rebuilds p from lse, with no forward replay and no O(L²) residual. q,
+    k, v and dO that the kernels cannot read in place are copied first
+    (``kernels/_layout.readable_in_place``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, block_q, block_k, causal, window):
+        # the forward kernels take contiguous q, k, v whose rows they can
+        # copy 16 bytes at a time; others get a copy (clone also realigns)
+        q, k, v = (t if t.is_contiguous() and readable_in_place(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
         out, lse = flash_forward(q, k, v, bias, block_q, block_k, causal,
                                  window)
         ctx.save_for_backward(q, k, v, bias, out, lse)
@@ -241,8 +250,6 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
         block_q, block_k, causal, window = ctx.geometry
-        from kubeflow_tpu_torch.kernels.flash_bwd import readable_in_place
-
         if not readable_in_place(g):  # a copy the kernels can read
             g = g.clone(memory_format=torch.contiguous_format)
         dq, dk, dv, dbias = flash_backward(

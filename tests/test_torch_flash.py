@@ -94,3 +94,99 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     # the CPU path runs the plain version and never counts a launch
     tra.flash_attention(q, k, v, bias, causal=True)
     assert FLASH_FWD.launches == before
+
+
+def _flat_view(dtype, offset=0, row=32, head_dim=32, transpose=False):
+    """A (1, 4, 1, head_dim) view of a flat buffer: rows `row` elements
+    apart from `offset` on, or head_dim-major when `transpose`."""
+    flat = torch.zeros(offset + 4 * max(row, head_dim), dtype=dtype)
+    if transpose:
+        return flat[offset:offset + 4 * head_dim].view(
+            1, head_dim, 1, 4).transpose(1, 3)
+    return flat[offset:offset + 4 * row].view(1, 4, 1, row)[..., :head_dim]
+
+
+# the backward's answers since it first needed the predicate: bf16 rows go
+# to the card 16 bytes at a time, f32 rows are read by stride as they come
+LAYOUTS = [
+    (torch.bfloat16, {}, True),
+    (torch.bfloat16, {"offset": 8}, True),
+    (torch.bfloat16, {"offset": 1}, False),
+    (torch.bfloat16, {"row": 36}, False),
+    (torch.bfloat16, {"row": 40}, True),
+    (torch.bfloat16, {"transpose": True}, False),
+    (torch.float32, {"offset": 1, "row": 33}, True),
+    (torch.float32, {"transpose": True}, False),
+]
+
+
+@pytest.mark.parametrize("dtype,view,readable", LAYOUTS)
+def test_shared_readable_in_place(dtype, view, readable):
+    """One predicate for the forward and the backward, with the answers the
+    backward gave before it was shared."""
+    from kubeflow_tpu_torch.kernels import _layout
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+
+    assert kb.readable_in_place is _layout.readable_in_place
+    assert _layout.readable_in_place(_flat_view(dtype, **view)) is readable
+
+
+@pytest.mark.parametrize("dtype,view,form", [
+    (torch.bfloat16, {}, "vector"),
+    (torch.bfloat16, {"offset": 1}, "scalar"),
+    (torch.bfloat16, {"row": 36}, "scalar"),
+    (torch.float32, {"row": 36}, "vector"),   # 144-byte rows: whole 16s
+    (torch.float32, {"offset": 1, "row": 33}, "scalar"),
+    (torch.float32, {"transpose": True}, "scalar"),
+    (torch.bfloat16, {"row": 48, "head_dim": 48}, "scalar"),  # no such D
+])
+def test_dd_form(dtype, view, form):
+    """flash_bwd_dd reads 16 bytes a lane only where both tensors' rows
+    allow it; every other layout takes the scalar form."""
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+
+    x = _flat_view(dtype, **view)
+    aligned = torch.zeros(x.shape, dtype=dtype)
+    assert kb._dd_path(aligned, x) == form
+    assert kb._dd_path(x, aligned) == form
+
+
+def test_forward_hands_the_kernel_readable_inputs(monkeypatch):
+    """q, k, v that the kernel cannot copy 16 bytes at a time (a misaligned
+    bf16 view) or read as contiguous (a transposed view) reach the forward
+    as contiguous copies with the same values; readable ones as they are."""
+    from kubeflow_tpu_torch.kernels._layout import readable_in_place
+
+    seen = []
+
+    def capture(q, k, v, bias, *args):
+        seen.append((q, k, v))
+        return (torch.zeros_like(q),
+                torch.zeros(q.shape[0], q.shape[2], q.shape[1]))
+
+    monkeypatch.setattr(tra, "flash_forward", capture)
+    q, k, v, bias = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in make_inputs(8))
+    shifted = torch.zeros(1 + k.numel(), dtype=k.dtype)[1:].view(k.shape)
+    shifted.copy_(k)
+    swapped = v.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not readable_in_place(shifted) and not swapped.is_contiguous()
+    tra.flash_attention(q, shifted, swapped, bias, causal=True)
+    got_q, got_k, got_v = seen[0]
+    assert got_q is q
+    for got, want in ((got_k, shifted), (got_v, swapped)):
+        assert got.is_contiguous() and readable_in_place(got)
+        assert torch.equal(got, want)
+
+
+def test_kernel_record_counts_forms():
+    """A launch counts once in ``launches`` and, when it names a form, once
+    for that form (flash_bwd_dd's 16-byte and scalar forms)."""
+    from kubeflow_tpu_torch.kernels.build import Kernel
+
+    kern = Kernel("flash_bwd_dd", "flash_bwd.cu", "ring_attention.py:1279")
+    kern.count_launch()
+    kern.count_launch("vector")
+    kern.count_launch("vector")
+    kern.count_launch("scalar")
+    assert kern.launches == 4 and kern.forms == {"vector": 2, "scalar": 1}

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of kubeflow_tpu_torch, and not
-chip_smoke.py, imports JAX, flax, optax, orbax or the JAX package."""
+"""The port stands alone: no module of kubeflow_tpu_torch, and neither
+chip_smoke.py nor kernel_times.py, imports JAX, flax, optax, orbax or the
+JAX package."""
 
 import re
 from pathlib import Path
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 # an import statement (or import_module call) naming a forbidden package;
 # kubeflow_tpu matches only where _torch does not follow
 FORBIDDEN = re.compile(

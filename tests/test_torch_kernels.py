@@ -19,10 +19,33 @@ except RuntimeError:  # the interop pool can be sized once per process
     pass
 
 
+# per block of one batch row, head and 64 positions, ||got - ref|| / ||ref||
+# (chip_smoke.py's TILE_TOL): a wrong tile of small values fails it too
+TILE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+
+
+def worst_block(got, ref, tile=64):
+    """The largest ||got - ref|| / ||ref|| over blocks of one batch row, one
+    head and `tile` positions of (B, L, H, D) tensors."""
+    def blocks(x):
+        x = x.float().transpose(1, 2)
+        x = torch.nn.functional.pad(x, (0, 0, 0, -x.shape[2] % tile))
+        return x.reshape(x.shape[0], x.shape[1], -1, tile * x.shape[3])
+
+    g, r = blocks(got), blocks(ref)
+    return ((g - r).norm(dim=-1)
+            / r.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_kernel_matches_plain_on_card(dtype, tol):
+    """flash_fwd against flash_forward_plain: the f32 FMA kernel in f32, the
+    tensor-core kernel in bf16. Max-abs within tol, every 64-position block
+    within TILE_TOL of its own norm, a second call bit-equal (no atomics);
+    L = 333 is a multiple of no tile, Lq != Lk takes the JAX causal
+    convention; in bf16 a misaligned view is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from kubeflow_tpu_torch.kernels.flash_fwd import FLASH_FWD, flash_fwd
@@ -32,26 +55,75 @@ def test_kernel_matches_plain_on_card(dtype, tol):
     for d in (16, 32, 64, 128):
         for lq, lk, causal, window in ((1, 1, True, 0), (70, 70, True, 0),
                                        (65, 130, False, 0),
-                                       (200, 200, True, 33)):
+                                       (200, 200, True, 33),
+                                       (333, 333, True, 0),
+                                       (150, 200, True, 100),
+                                       (200, 150, True, 0)):
             q = torch.randn((3, lq, 5, d), generator=gen, device="cuda")
             k, v = (torch.randn((3, lk, 5, d), generator=gen, device="cuda")
                     for _ in range(2))
             bias = torch.zeros((3, 1, 1, lk), device="cuda")
             bias[2, ..., lk - lk // 10:] = -1e9  # key 0 stays visible
             q, k, v, bias = (t.to(dtype) for t in (q, k, v, bias))
+            case = (d, lq, lk, causal, window)
             before = FLASH_FWD.launches
             o, lse = flash_fwd(q, k, v, bias, causal, window)
+            o_2, lse_2 = flash_fwd(q, k, v, bias, causal, window)
             torch.cuda.synchronize()
-            assert FLASH_FWD.launches == before + 1
+            assert FLASH_FWD.launches == before + 2
+            assert torch.equal(o, o_2) and torch.equal(lse, lse_2), case
             o_p, lse_p = tra.flash_forward_plain(q, k, v, bias, 64, causal,
                                                  window)
             err = (o.float() - o_p.float()).abs().max().item()
-            assert err <= tol, (d, lq, lk, causal, window, err)
+            assert err <= tol, (case, err)
             assert (lse - lse_p).abs().max().item() <= tol
+            block = worst_block(o, o_p)
+            assert block <= TILE_TOL[dtype], (case, block)
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.zeros((1, 4, 1, 48), device="cuda", dtype=dtype)
         flash_fwd(x, x, x, torch.zeros((1, 1, 1, 4), device="cuda",
                                        dtype=dtype), True)
+    if dtype == torch.bfloat16:  # 16-byte cp.async needs aligned rows
+        x = torch.zeros((1, 4, 1, 32), device="cuda", dtype=dtype)
+        flat = torch.zeros(1 + 4 * 32, device="cuda", dtype=dtype)
+        shifted = flat[1:].view(1, 4, 1, 32)   # storage offset 1: 2 bytes
+        with pytest.raises(ValueError, match="k starts at an address"):
+            flash_fwd(x, shifted, x, torch.zeros((1, 1, 1, 4), device="cuda",
+                                                 dtype=dtype), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dd_kernel_forms_on_card(dtype):
+    """flash_bwd_dd's 16-byte-load form (a strided dO whose rows it can
+    read) and its scalar form (a dO at storage offset 1) against
+    (dO * O).sum(-1) in f32, within 1e-5 of the largest |D| (sums of D
+    products in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for d in (16, 32, 64, 128):
+        for lq in (1, 77, 256):
+            o = torch.randn((2, lq, 3, d), generator=gen,
+                            device="cuda").to(dtype)
+            g = torch.randn((2, lq, 3, d), generator=gen,
+                            device="cuda").to(dtype)
+            want = (g.float() * o.float()).sum(-1).transpose(1, 2)
+            strided = g.transpose(1, 2).contiguous().transpose(1, 2)
+            flat = torch.zeros(1 + g.numel(), device="cuda", dtype=dtype)
+            shifted = flat[1:].view(g.shape)
+            shifted.copy_(g)
+            for form, do in (("vector", strided), ("scalar", shifted)):
+                before = kb.FLASH_BWD_DD.forms.get(form, 0)
+                dd = kb.flash_bwd_dd(o, do)
+                torch.cuda.synchronize()
+                assert kb.FLASH_BWD_DD.forms[form] == before + 1, (form, d,
+                                                                  lq)
+                err = (dd - want).abs().max().item()
+                assert err <= 1e-5 * (1 + want.abs().max().item()), (
+                    form, d, lq, err)
 
 
 @pytest.mark.cuda
