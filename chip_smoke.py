@@ -33,6 +33,20 @@ Phases, each fatal on failure:
      against the plain attention path (the f32 FMA backward kernels; the
      bf16 tensor-core kernels that training runs are held by phase 5), and
      a checkpoint round trip
+  7. the engine (run after phase 4): GPT-2 small in bf16 compute with f32
+     parameters served through the continuous-batching engine over a paged
+     KV pool (8 rows, block 16) behind ModelServer; 16 requests of 128
+     tokens (8 sharing a 64-token system prefix, 2 sampled at temperature
+     0.8 with top_k 50 through a second model dir) from 8 client threads,
+     128 new tokens each; checks (a) every greedy token against the plain
+     path under teacher forcing (within 8 bf16 ulps of its step's largest
+     logit), (b) flash_fwd launches exactly 12 per prefill from position
+     0, (c) pool reuse of the shared prefix, (d) a keep_chain chain resumed
+     on a second engine continues token-identical, (e) a beam predictor's
+     score against the winning beam's log-prob from a plain forward, (f) a
+     sampled request repeated with its seed repeats; prints TTFT p50/p99,
+     aggregate tokens/s, dispatches, prefill counts, peak memory and
+     flash_fwd at the engine's prefill shape
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Every number is printed beside the card's
@@ -58,6 +72,16 @@ import numpy as np
 SEED = 0
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
 LOGITS_BATCH, LOGITS_LEN, LOGITS_PAD = 2, 16, 4
+# the engine path (phase 7): bench.py's gpt2s_decode row (bf16, 8 rows,
+# 128 + 128 tokens) as continuous-batching traffic
+ENGINE_ROWS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_BLOCK = 8, 128, 128, 16
+ENGINE_PREFIX, ENGINE_SHARED, ENGINE_REQUESTS, ENGINE_CLIENTS = 64, 8, 16, 8
+ENGINE_SAMPLED, ENGINE_TEMP, ENGINE_TOP_K = 2, 0.8, 50
+ENGINE_RESUME_AT, ENGINE_RESUME_NEW, ENGINE_BEAMS, ENGINE_BEAM_NEW = \
+    16, 48, 4, 16
+# bf16 logits: one ulp is 2^-8 of the largest |logit| (the limit of
+# tests/test_torch_train.py: 8 ulps)
+BF16_ULP, BF16_ULPS = 2.0 ** -8, 8
 # the training path: bench.py's gpt2s_flash_2k shape
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 20, 2
 # phase 5's second limit, per block of one batch row, head and 64 positions:
@@ -1037,6 +1061,362 @@ def phase_serve(card: str) -> int:
     return launches
 
 
+def engine_prompts(vocab: int) -> tuple[list, list]:
+    """Phase 7's traffic from the seed: (prompts, sampled flags). The first
+    ENGINE_SHARED prompts share an ENGINE_PREFIX-token system prefix; the
+    last ENGINE_SAMPLED are sampled."""
+    rng = np.random.RandomState(SEED + 7)
+    prefix = rng.randint(1, vocab, ENGINE_PREFIX)
+    prompts = []
+    for i in range(ENGINE_REQUESTS):
+        if i < ENGINE_SHARED:
+            tail = rng.randint(1, vocab, ENGINE_PROMPT - ENGINE_PREFIX)
+            prompts.append(np.concatenate([prefix, tail]).astype(np.int32))
+        else:
+            prompts.append(rng.randint(1, vocab, ENGINE_PROMPT)
+                           .astype(np.int32))
+    sampled = [i >= ENGINE_REQUESTS - ENGINE_SAMPLED
+               for i in range(ENGINE_REQUESTS)]
+    return prompts, sampled
+
+
+def teacher_forced_gap(model, prompts, tokens) -> tuple[float, float]:
+    """Each generated token against the plain path: the model (dense
+    attention) prefills the prompts, then reads the generated tokens in one
+    block through its cache, and each step's chosen logit is compared with
+    its largest. Returns (largest gap, largest gap in units of that step's
+    bf16 ulp, 2^-8 of its largest |logit|)."""
+    import torch
+
+    x = torch.as_tensor(np.stack(prompts), device="cuda").long()
+    y = torch.as_tensor(np.stack(tokens), device="cuda").long()
+    with torch.inference_mode():
+        cache = model.init_cache(x.shape[0])
+        first = model(x, cache=cache)[:, -1:]
+        rest = model(y[:, :-1], cache=cache)
+        logits = torch.cat([first, rest], dim=1)          # (B, NEW, V)
+        top = logits.max(-1).values
+        gap = top - logits.gather(-1, y[..., None])[..., 0]
+        ulp = BF16_ULP * logits.abs().max(-1).values
+    return gap.max().item(), (gap / ulp).max().item()
+
+
+class Samples:
+    """The engines' time-series hook (any object with .record(name,
+    value)): every decode tick's seconds and every request's TTFT, with
+    the thread that recorded it."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.rows: list = []
+
+    def record(self, name: str, value: float) -> None:
+        with self.lock:
+            self.rows.append((name, value, time.perf_counter()))
+
+
+def engine_tick_profile(module, card: str) -> None:
+    """Where an engine tick goes on the card, with no other thread in the
+    process: the 8-row decode forward alone (loop time), ten steady ticks
+    of one engine of ENGINE_ROWS busy rows over a paged pool timed on the
+    host clock, then ten more under torch.profiler (device busy per tick,
+    top device ops; the profiler adds host time to every launch, so the
+    idle share divides by the unprofiled ticks)."""
+    import torch
+
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.fleet import PagedKVPool
+
+    x = torch.ones((ENGINE_ROWS, 1), dtype=torch.long, device="cuda")
+    cache = module.init_cache(ENGINE_ROWS)
+
+    def step():
+        with torch.inference_mode():
+            module(x, cache=cache)
+            cache.index.fill_(ENGINE_PROMPT)
+
+    forward_ms = time_ms(step, 20)
+    rng = np.random.RandomState(SEED + 12)
+    eng = ContinuousBatcher(module, max_rows=ENGINE_ROWS,
+                            paged_kv=PagedKVPool(ENGINE_BLOCK, 1024))
+    for _ in range(ENGINE_ROWS):
+        eng.submit(rng.randint(1, module.cfg.vocab_size, ENGINE_PROMPT),
+                   max_new_tokens=ENGINE_NEW)
+    for _ in range(4):       # admission, then steady decode ticks
+        eng.tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        eng.tick()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e2
+    events, wall = device_events(eng.tick, 10)
+    busy_ms = busy_us(events) / 1e4
+    by_name: dict = {}
+    for name, _, dur in events:
+        by_name[name] = by_name.get(name, 0.0) + dur
+    print(f"  a steady engine tick ({ENGINE_ROWS} rows, paged, no other "
+          f"thread): {tick_ms:.3f} ms host wall, device busy {busy_ms:.3f} "
+          f"ms (profiled: {wall * 1e2:.3f} ms wall), idle share "
+          f"{100 * (1 - busy_ms / tick_ms):.1f}%; the {ENGINE_ROWS}-row "
+          f"decode forward alone {forward_ms:.3f} ms loop, "
+          f"{device_ms(step, 20):.3f} ms device; top device ops of ten "
+          "ticks: " + "; ".join(
+              f"{d / 1e3:.3f} ms {n[:60]}" for n, d in sorted(
+                  by_name.items(), key=lambda x: -x[1])[:4])
+          + f" [{card}]", flush=True)
+    eng.run_until_idle()
+
+
+def phase_engine(peaks, card: str) -> int:
+    """GPT-2 small served through the continuous-batching engine in bf16.
+    Returns flash_fwd's launches over the engine path's run."""
+    import threading
+
+    import torch
+
+    from kubeflow_tpu_torch.kernels import KERNELS
+    from kubeflow_tpu_torch.kernels.flash_fwd import FLASH_FWD, flash_fwd
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM, beam_search
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        flash_forward_plain,
+    )
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.model import TorchModel, save_predictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.tracing import Tracer
+
+    cfg = GPTConfig.small(attention="flash", dtype="bfloat16")
+    n_layers = cfg.num_layers
+    t0 = time.perf_counter()
+    sd = GPTLM(cfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED + 5)).state_dict()
+    prompts, sampled = engine_prompts(cfg.vocab_size)
+    kw = {"size": "small", "config": {"attention": "flash",
+                                      "dtype": "bfloat16"}}
+    gen = {"continuous": True, "continuous_rows": ENGINE_ROWS,
+           "paged_kv_block": ENGINE_BLOCK, "max_new_tokens": ENGINE_NEW,
+           "temperature": 0.0}
+    example = np.stack(prompts[:1])
+    with tempfile.TemporaryDirectory() as tmp:
+        save_predictor(f"{tmp}/greedy", "gpt-lm", sd, example,
+                       generate=gen, **kw)
+        save_predictor(f"{tmp}/sampled", "gpt-lm", sd, example,
+                       generate={**gen, "temperature": ENGINE_TEMP,
+                                 "top_k": ENGINE_TOP_K, "seed": SEED},
+                       **kw)
+        save_predictor(f"{tmp}/beam", "gpt-lm", sd, example,
+                       generate={"num_beams": ENGINE_BEAMS,
+                                 "max_new_tokens": ENGINE_BEAM_NEW}, **kw)
+        models = {name: TorchModel(f"gpt2-{name}", f"{tmp}/{name}",
+                                   device="cuda")
+                  for name in ("greedy", "sampled", "beam")}
+        srv = ModelServer(list(models.values()), port=0, host="127.0.0.1")
+        srv.start()
+    try:
+        engines = {n: models[n]._engine for n in ("greedy", "sampled")}
+        tracer, samples = Tracer(), {n: Samples() for n in engines}
+        for n, eng in engines.items():
+            eng.tracer = tracer    # the engine's spans count the prefills
+            eng.tsdb = samples[n]  # its decode-tick and TTFT samples
+        print(f"phase 7: GPT-2 small, bf16 compute, f32 params, engine "
+              f"{ENGINE_ROWS} rows, paged KV block {ENGINE_BLOCK}; server up "
+              f"with the greedy, sampled and beam predictors in "
+              f"{time.perf_counter() - t0:.2f}s [{card}]", flush=True)
+        results = [None] * ENGINE_REQUESTS
+
+        def client(c):
+            for i in range(c, ENGINE_REQUESTS, ENGINE_CLIENTS):
+                name = "sampled" if sampled[i] else "greedy"
+                results[i] = post(f"{srv.url}/v1/models/gpt2-{name}:predict",
+                                  {"instances": [prompts[i].tolist()]})
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in KERNELS.values():
+            kern.launches = 0      # the engine path's run starts here
+        t_run = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(ENGINE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t_run
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("an engine client did not finish")
+        tokens = []
+        for i, (code, body, _) in enumerate(results):
+            if code != 200:
+                raise AssertionError(f"engine request {i} failed: {body}")
+            toks = np.asarray(body["predictions"])
+            if toks.shape != (1, ENGINE_NEW) or toks.min() < 0 \
+                    or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"engine response {i}: {toks.shape}")
+            tokens.append(toks[0])
+        ttft = np.array([body["timing"]["ttft_s"]
+                         for _, body, _ in results]) * 1e3
+        prefills = [s for s in tracer.snapshot()
+                    if s["name"] == "engine.prefill_chunk"]
+        from_zero = sum(s["attrs"]["tokens_reused"] == 0 for s in prefills)
+        g = engines["greedy"]
+        dispatches = {n: e.step_count for n, e in engines.items()}
+        total = ENGINE_REQUESTS * ENGINE_NEW
+        print(f"  {ENGINE_REQUESTS} requests x {ENGINE_PROMPT} tokens from "
+              f"{ENGINE_CLIENTS} client threads, {ENGINE_NEW} new tokens "
+              f"each: {wall:.3f}s wall, {total / wall:.1f} tokens/s "
+              f"aggregate, {(total - ENGINE_REQUESTS) / wall:.1f} decode "
+              f"tokens/s (first tokens excluded); TTFT (engine) p50 "
+              f"{np.percentile(ttft, 50):.2f} ms, p99 "
+              f"{np.percentile(ttft, 99):.2f} ms, min {ttft.min():.2f}, max "
+              f"{ttft.max():.2f}; dispatches {dispatches}; greedy engine "
+              f"prefill_tokens_total {g.prefill_tokens_total}, "
+              f"prefill_tokens_reused {g.prefill_tokens_reused}; pool "
+              f"{g.paged_kv.metrics}; peak memory {peak:.2f} GiB; launches "
+              f"{launches} [{card}]", flush=True)
+        # decode ticks: while the sampled engine also decodes (the second
+        # wave), the two engine threads share the interpreter lock
+        ticks = {n: [(v, t) for name, v, t in smp.rows
+                     if name == "serving.decode_tick_s"]
+                 for n, smp in samples.items()}
+        both = (min(t for _, t in ticks["sampled"]),
+                max(t for _, t in ticks["sampled"]))
+        alone = [v for v, t in ticks["greedy"] if not both[0] <= t <= both[1]]
+        shared = [v for v, t in ticks["greedy"] if both[0] <= t <= both[1]]
+        print(f"  decode dispatch (forward to read-back) median: greedy "
+              f"engine alone {np.median(alone) * 1e3:.2f} ms over "
+              f"{len(alone)}, beside the sampled engine "
+              f"{np.median(shared) * 1e3:.2f} ms over {len(shared)}; "
+              f"sampled engine {np.median([v for v, _ in ticks['sampled']]) * 1e3:.2f}"
+              f" ms; engine TTFT samples {sum(name == 'serving.ttft_s' for smp in samples.values() for name, _, _ in smp.rows)}"
+              f" [{card}]", flush=True)
+        # (b) the flash kernel ran on every prefill from position 0, and
+        # on nothing else
+        if len(prefills) != ENGINE_REQUESTS \
+                or launches["flash_fwd"] != n_layers * from_zero:
+            raise AssertionError(
+                f"flash_fwd launched {launches['flash_fwd']} times over "
+                f"{len(prefills)} prefills, {from_zero} from position 0; "
+                f"expected {n_layers} per prefill from position 0")
+        # (c) the shared prefix seeds from the pool
+        want_reused = ENGINE_PREFIX * (ENGINE_SHARED - 1)
+        if g.prefill_tokens_reused < want_reused:
+            raise AssertionError(f"pool reuse {g.prefill_tokens_reused} < "
+                                 f"{want_reused}")
+        # (a) greedy tokens against the plain path under teacher forcing
+        dense = GPTLM(GPTConfig.small(attention="dense", dtype="bfloat16"),
+                      device="cuda")
+        dense.load_state_dict(sd)
+        greedy = [i for i in range(ENGINE_REQUESTS) if not sampled[i]]
+        gap, ulps = teacher_forced_gap(dense, [prompts[i] for i in greedy],
+                                       [tokens[i] for i in greedy])
+        print(f"  (a) {len(greedy)} greedy requests under teacher forcing on "
+              f"the plain path: chosen logit at most {gap:.4e} below its "
+              f"step's max, {ulps:.2f} bf16 ulps (limit {BF16_ULPS}) "
+              f"[{card}]", flush=True)
+        if not ulps <= BF16_ULPS:
+            raise AssertionError(f"engine tokens off the plain path by "
+                                 f"{ulps} ulps")
+        # (d) a keep_chain chain, resumed on a second engine over the same
+        # pool, continues as an uninterrupted run of that prompt (both
+        # engines ENGINE_ROWS wide: the same decode shapes)
+        rng = np.random.RandomState(SEED + 8)
+        p = rng.randint(1, cfg.vocab_size, ENGINE_PROMPT).astype(np.int32)
+        module = g.module
+        kept = g.submit(p, max_new_tokens=ENGINE_RESUME_AT, keep_chain=True)
+        kept.result(timeout=300)
+        chain = kept.chain
+        chain_len = chain.length
+        keep = chain_len - p.size + 1
+        second = ContinuousBatcher(module, max_rows=ENGINE_ROWS,
+                                   paged_kv=g.paged_kv)
+        resumed = second.submit(p, max_new_tokens=ENGINE_RESUME_NEW,
+                                resume_from=(chain, kept.tokens[:keep]))
+        second.run_until_idle()
+        straight = ContinuousBatcher(module, max_rows=ENGINE_ROWS)
+        whole = straight.submit(p, max_new_tokens=ENGINE_RESUME_NEW)
+        straight.run_until_idle()
+        same = np.array_equal(resumed.result(1), whole.result(1))
+        print(f"  (d) keep_chain after {ENGINE_RESUME_AT} tokens: chain of "
+              f"{chain_len} positions, resumed with {keep} tokens on a "
+              f"second engine (prefill_tokens_total "
+              f"{second.prefill_tokens_total}) to {ENGINE_RESUME_NEW}: equal "
+              f"to an uninterrupted run {same} [{card}]", flush=True)
+        if not same or not resumed.resumed or second.prefill_tokens_total:
+            raise AssertionError("the resumed chain diverged")
+        # (e) beam search through the predictor, its score from a plain
+        # forward
+        code, body, _ = post(f"{srv.url}/v1/models/gpt2-beam:predict",
+                             {"instances": [prompts[0].tolist()]})
+        if code != 200:
+            raise AssertionError(f"beam request failed: {body}")
+        beam_ids = np.asarray(body["predictions"])
+        x = torch.as_tensor(np.stack(prompts[:1]), device="cuda").long()
+        ids, score = beam_search(module, x, ENGINE_BEAM_NEW, ENGINE_BEAMS)
+        y = ids.long()
+        with torch.inference_mode():
+            cache = dense.init_cache(1)
+            logits = torch.cat([dense(x, cache=cache)[:, -1:],
+                                dense(y[:, :-1], cache=cache)], dim=1)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        exact = logp.gather(-1, y[..., None]).sum().item()
+        # |d log_softmax| <= 2 max |d logit| a step: 8 ulps each
+        tol = (2 * BF16_ULPS * BF16_ULP
+               * logits.abs().max(-1).values.sum()).item()
+        err = abs(score.item() - exact)
+        print(f"  (e) beam search ({ENGINE_BEAMS} beams, "
+              f"{ENGINE_BEAM_NEW} tokens) through the predictor: ids equal "
+              f"to a direct call {np.array_equal(beam_ids, ids.cpu().numpy())}; "
+              f"score {score.item():.4f} vs plain forward {exact:.4f}, "
+              f"|diff| {err:.3e} (limit {tol:.3e}) [{card}]", flush=True)
+        if not np.array_equal(beam_ids, ids.cpu().numpy()) or err > tol:
+            raise AssertionError("beam search disagrees with the plain "
+                                 "forward")
+        # (f) a sampled request repeated with its seed repeats
+        s_eng = engines["sampled"]
+        draws = [s_eng.submit(prompts[-1], temperature=ENGINE_TEMP,
+                              key=SEED + 9) for _ in range(2)]
+        a, b = (r.result(timeout=300) for r in draws)
+        other = s_eng.submit(prompts[-1], temperature=ENGINE_TEMP,
+                             key=SEED + 10).result(timeout=300)
+        print(f"  (f) sampled (temperature {ENGINE_TEMP}, top_k "
+              f"{ENGINE_TOP_K}) twice with one seed: equal "
+              f"{np.array_equal(a, b)}; another seed differs "
+              f"{not np.array_equal(a, other)} [{card}]", flush=True)
+        if not np.array_equal(a, b) or np.array_equal(a, other):
+            raise AssertionError("sampling is not deterministic per seed")
+    finally:
+        srv.stop()
+    engine_tick_profile(module, card)
+    # flash_fwd at the engine's prefill shape, against its plain version
+    gen_ = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    q, k, v, bias = make_attention_inputs(1, ENGINE_PROMPT, 12, 64,
+                                          torch.bfloat16, 0, gen_)
+    o_k, _ = flash_fwd(q, k, v, bias, True, 0)
+    o_p, _ = flash_forward_plain(q, k, v, bias, 128, True, 0)
+    err_o = (o_k.float() - o_p.float()).abs().max().item()
+    kernel = functools.partial(flash_fwd, q, k, v, bias, True, 0)
+    ms, dev = time_ms(kernel, 50), device_ms(kernel, 50)
+    bound_ms, bound_by = attention_bound(1, 12, ENGINE_PROMPT, ENGINE_PROMPT,
+                                         64, "bfloat16", True, 0, peaks)
+    causal = sdpa_causal_call(q, k, v)
+    print(f"  flash_fwd at the engine's prefill shape (1, {ENGINE_PROMPT}, "
+          f"12, 64) bf16 causal: err_o {err_o:.3e} (tol 2e-2), "
+          f"kernel_ms={ms:.5f} dev={dev:.5f} bound_ms={bound_ms:.5f} "
+          f"({bound_by}) sdpa_causal dev={device_ms(causal, 50):.5f} "
+          f"[{card}]", flush=True)
+    if not err_o <= 2e-2:
+        raise AssertionError(f"flash_fwd at the prefill shape: {err_o}")
+    del models, engines, srv, dense, module, second, straight
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_fwd"]
+
+
 def main() -> int:
     import torch
 
@@ -1068,6 +1448,9 @@ def main() -> int:
     serve_launches = phase_serve(card)
     print(f"  serving path: flash_fwd launches {serve_launches} [{card}]",
           flush=True)
+    engine_launches = phase_engine(peaks, card)
+    print(f"  engine path: flash_fwd launches {engine_launches} [{card}]",
+          flush=True)
     timings.update(phase_backward(peaks, card, routes))
     launches, step_ms = phase_train(card)
     per_step = launches["flash_bwd_dq"] // TRAIN_STEPS  # one per layer
@@ -1092,6 +1475,11 @@ def main() -> int:
         raise AssertionError(f"the bf16 tensor-core kernels spill {spill64} "
                              "bytes at D = 64")
 
+    # flash_fwd's launches: the training path's and the engine path's
+    launches["flash_fwd"] += engine_launches
+    print(f"flash_fwd launches: training "
+          f"{launches['flash_fwd'] - engine_launches}, engine "
+          f"{engine_launches} [{card}]", flush=True)
     record = {"kernels": [{
         "name": name,
         "route": "cuda",

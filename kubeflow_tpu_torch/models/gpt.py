@@ -583,6 +583,68 @@ def _shifted_token_loss(logits, labels):
     return per_tok, (shift_labels != 0).float()
 
 
+def set_cache_indices(cache: KVCache, values=None, active=None) -> KVCache:
+    """Rewrite the cache's per-row index in place and return the cache.
+
+    The one owner of the cache-index contract (the continuous engine's row
+    parking and the bucketed prefill's rewind route here), as in the JAX
+    package, where it rewrites every layer's ``cache_index`` and the LM's
+    ``pos_index``; the port keeps one (B,) index for all of them. values:
+    a scalar or (B,) replacement, None keeps the index. active: a (B,)
+    bool mask; rows where it is False park at 0, so a free row's garbage
+    decode never creeps its index past max_len."""
+    idx = cache.index
+    vals = (idx if values is None else torch.as_tensor(
+        values, dtype=idx.dtype, device=idx.device).expand(idx.shape))
+    if active is not None:
+        active = torch.as_tensor(active, dtype=torch.bool, device=idx.device)
+        vals = torch.where(active, vals, torch.zeros_like(vals))
+    idx.copy_(vals)
+    return cache
+
+
+def cache_paths(num_layers: int) -> list[str]:
+    """The names of a cache's K/V buffers, ``layer_{i}/key`` then
+    ``layer_{i}/value`` per layer: the keys of ``gather_kv_rows`` and of
+    the paged pool's blocks."""
+    return [f"layer_{i}/{kind}" for i in range(num_layers)
+            for kind in ("key", "value")]
+
+
+def cache_buffers(cache: KVCache) -> list[torch.Tensor]:
+    """The cache's K/V buffers in ``cache_paths`` order."""
+    return [buf for pair in zip(cache.key, cache.value) for buf in pair]
+
+
+def gather_kv_rows(cache: KVCache, starts, window: int
+                   ) -> dict[str, torch.Tensor]:
+    """Every K/V buffer's per-row slice ``[starts[b] : starts[b] + window]``
+    -> {``layer_{i}/key|value``: (B, window, kv_heads, head_dim)}.
+
+    The read-side twin of the per-row block write: rows sit at different
+    depths (continuous batching), so each row is read at its own start;
+    a start past ``capacity - window`` clamps, as ``dynamic_slice`` does.
+    The serving engine uses it to extract a decode dispatch's freshly
+    written K/V for the paged pool's block chains."""
+    b, cap = cache.index.shape[0], cache.capacity
+    starts = torch.as_tensor(starts, dtype=torch.int64,
+                             device=cache.index.device).clamp(0, cap - window)
+    idx = starts[:, None] + torch.arange(window, device=starts.device)
+    kvh, d = cache.key[0].shape[2:]
+    idx = idx[:, :, None, None].expand(b, window, kvh, d)
+    return {path: buf.gather(1, idx) for path, buf in zip(
+        cache_paths(len(cache.key)), cache_buffers(cache))}
+
+
+def splice_cache_row(cache: KVCache, row: KVCache, slot: int) -> None:
+    """Copy the batch-1 cache ``row`` (every buffer and its index) into row
+    ``slot`` of the batch cache ``cache``, in place: the continuous
+    engine's admission of a prefilled row into the live batch."""
+    for dst, src in zip(cache_buffers(cache), cache_buffers(row)):
+        dst[slot].copy_(src[0])
+    cache.index[slot] = row.index[0]
+
+
 def eos_id_array(eos_token_id, device=None) -> torch.Tensor | None:
     """Normalize an eos spec — int, or a sequence of stop ids — to a 1-D
     int64 tensor, or None. The FIRST id is the clamp token every decode path
@@ -653,3 +715,70 @@ def generate(
             done = done | torch.isin(tok, stops)
         out.append(tok)
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+@torch.inference_mode()
+def beam_search(
+    model: GPTLM,
+    prompt_ids: torch.Tensor,
+    max_new_tokens: int,
+    num_beams: int = 4,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decoding with the KV cache: beams ride the batch dim,
+    and each step reorders the cache rows by beam parent.
+
+    Returns (ids (B, max_new_tokens) int32, scores (B,) float32) for the
+    best beam per input, scores being exact sequence log-probs. All beams
+    decode exactly max_new_tokens tokens (no EOS), so no length penalty is
+    offered: with equal lengths it could never change the winner.
+    Unpadded prompts, as in generate()."""
+    b, prompt_len = prompt_ids.shape
+    k = num_beams
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if prompt_len + max_new_tokens > model.cfg.max_len:
+        raise ValueError(
+            f"prompt {prompt_len} + {max_new_tokens} new tokens exceeds "
+            f"max_len {model.cfg.max_len}"
+        )
+
+    def take_rows(cache: KVCache, rows: torch.Tensor) -> None:
+        cache.key[:] = [t.index_select(0, rows) for t in cache.key]
+        cache.value[:] = [t.index_select(0, rows) for t in cache.value]
+        cache.index = cache.index.index_select(0, rows)
+
+    # prefill ONCE per input, then expand the cache to (B*K) rows: the K
+    # beams of an input are identical until the first top-k
+    cache = model.init_cache(b)
+    logits = model(prompt_ids, cache=cache, prefill=True)
+    dev = logits.device
+    take_rows(cache, torch.arange(b, device=dev).repeat_interleave(k))
+    log_p = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    vocab = log_p.shape[-1]
+    # all beams of an input start identical, so all but beam 0 get -inf
+    # initial score (else top-k picks K copies of the same continuation)
+    scores = torch.tensor([0.0] + [-math.inf] * (k - 1),
+                          device=dev).repeat(b)                  # (B*K,)
+    log_p = log_p.repeat_interleave(k, dim=0)                    # (B*K, V)
+    base = torch.arange(b, device=dev)[:, None] * k
+    toks, parents = [], []
+    for t in range(max_new_tokens):
+        if t:
+            log_p = torch.log_softmax(
+                model(tok[:, None], cache=cache)[:, 0].float(), dim=-1)
+        joint = (scores[:, None] + log_p).reshape(b, k * vocab)
+        top_scores, top_idx = torch.topk(joint, k, dim=-1)       # (B, K)
+        rows = (base + top_idx // vocab).reshape(b * k)
+        tok = (top_idx % vocab).reshape(b * k)
+        take_rows(cache, rows)
+        scores = top_scores.reshape(b * k)
+        toks.append(tok)
+        parents.append(rows)
+    # backtrack: walk parent pointers from the best final beam
+    row = base[:, 0] + scores.reshape(b, k).argmax(-1)           # (B,)
+    best = scores[row]
+    out = []
+    for tok_t, parent_t in zip(reversed(toks), reversed(parents)):
+        out.append(tok_t[row])
+        row = parent_t[row]
+    return torch.stack(out[::-1], dim=1).to(torch.int32), best

@@ -145,6 +145,7 @@ def _load_predict_fn(model_dir: str | Path, device="cuda"
     """Rebuild the predictor from the model dir. Returns (predict_fn,
     config, example); predict_fn takes an integer id tensor on the model's
     device (and a torch.Generator when the config samples)."""
+    from kubeflow_tpu_torch.models.gpt import beam_search as _beam_search
     from kubeflow_tpu_torch.models.gpt import generate as _generate
 
     module, config = load_generative_model(model_dir, device)
@@ -156,21 +157,31 @@ def _load_predict_fn(model_dir: str | Path, device="cuda"
                 return module(x)
 
         return predict_fn, config, example
-    if gen.get("continuous") or int(gen.get("fleet_replicas", 1)) > 1:
-        raise NotImplementedError(
-            "continuous batching and the serving fleet are ported with the "
-            "serving-engine slice (ROADMAP Queue A item 4)")
-    if int(gen.get("num_beams", 1)) > 1:
-        raise NotImplementedError(
-            "beam search (num_beams > 1) is ported with the serving-engine "
-            "slice (ROADMAP Queue A item 1)")
+    temperature = float(gen.get("temperature", 0.0))
+    num_beams = int(gen.get("num_beams", 1))
+    if num_beams > 1 and temperature > 0.0:
+        raise ValueError(
+            "generate config: num_beams > 1 and temperature > 0 are "
+            "mutually exclusive (beam search is deterministic)"
+        )
     eos_raw = gen.get("eos_token_id")
     eos_id = (None if eos_raw is None
               else [int(x) for x in eos_raw]
               if isinstance(eos_raw, (list, tuple)) else int(eos_raw))
+    if num_beams > 1 and eos_id is not None:
+        raise ValueError(
+            "generate config: eos_token_id is not supported with "
+            "num_beams > 1 (beam search scores full-length beams)"
+        )
     max_new = int(gen.get("max_new_tokens", 32))
-    temperature = float(gen.get("temperature", 0.0))
     top_k = int(gen.get("top_k", 0))
+    if num_beams > 1:
+        def predict_fn(x):
+            ids, _ = _beam_search(module, x, max_new_tokens=max_new,
+                                  num_beams=num_beams)
+            return ids
+
+        return predict_fn, config, example
 
     def predict_fn(x, generator=None):
         return _generate(module, x, max_new_tokens=max_new,
@@ -182,8 +193,10 @@ def _load_predict_fn(model_dir: str | Path, device="cuda"
 
 class TorchModel(Model):
     """In-tree-family predictor on one device (the card unless
-    ``device="cpu"``): logits mode, or greedy/sampled generation when the
-    config has a ``generate`` block."""
+    ``device="cpu"``): logits mode, or greedy/sampled/beam generation when
+    the config has a ``generate`` block; with ``generate.continuous`` the
+    requests share a continuous-batching engine (serving/continuous.py) on
+    its own thread."""
 
     def __init__(self, name: str, model_dir: str | Path,
                  device: str | torch.device = "cuda"):
@@ -191,11 +204,16 @@ class TorchModel(Model):
         self.model_dir = Path(model_dir)
         self.device = select_device(device)
         self._predict_fn: Callable | None = None
+        self._engine = None  # continuous-batching decode engine
         self._calls = 0
         self._calls_lock = threading.Lock()
         self.config: dict = {}
 
     def load(self) -> None:
+        config = json.loads((self.model_dir / CONFIG_FILE).read_text())
+        if (config.get("generate") or {}).get("continuous"):
+            self._load_engine(config["generate"])
+            return
         if (self.model_dir / _JAX_AOT_FILE).exists():
             raise NotImplementedError(
                 f"{self.model_dir} holds a JAX AOT artifact; AOT export is "
@@ -213,6 +231,63 @@ class TorchModel(Model):
         self._predict_fn = predict_fn
         self.ready = True
 
+    def _load_engine(self, gen: dict) -> None:
+        """Continuous batching: concurrent requests interleave decode steps
+        on one fixed-row engine instead of serializing whole decodes.
+        Greedy or sampling (per-request seeds, engine-static top_k), with
+        chunked prefill and a per-model paged KV pool when configured."""
+        from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+
+        if int(gen.get("num_beams", 1)) > 1:
+            raise ValueError(
+                "generate config: continuous batching does not "
+                "compose with beam search (num_beams == 1)")
+        if int(gen.get("fleet_replicas", 1)) > 1:
+            raise NotImplementedError(
+                "fleet_replicas > 1 (the serving fleet's router) is ported "
+                "with the pod slice (ROADMAP Queue A item 5)")
+        if gen.get("continuous_draft_dir"):
+            raise NotImplementedError(
+                "continuous_draft_dir (speculative continuous serving) is "
+                "ported with ROADMAP Queue A item 4b")
+        module, self.config = load_generative_model(self.model_dir,
+                                                    self.device)
+        rows = int(gen.get("continuous_rows", 8))
+        # warmup outside the engine (its counters and pool stay untouched):
+        # a batch-1 prefill of the recorded prompt shape and one decode
+        # step at the engine's width, so kernels build and the card's
+        # matmul shapes are set up at load, not in the first requests
+        example = torch.zeros(self.config["input_shape"][1:],
+                              dtype=torch.int64, device=self.device)[None]
+        with torch.inference_mode():
+            module(example, cache=module.init_cache(1), prefill=True)
+            module(example[:, :1].expand(rows, 1),
+                   cache=module.init_cache(rows))
+        paged_kv = None
+        if int(gen.get("paged_kv_block", 0)) > 0:
+            from kubeflow_tpu_torch.serving.fleet import PagedKVPool
+
+            paged_kv = PagedKVPool(
+                block_size=int(gen["paged_kv_block"]),
+                capacity_blocks=int(
+                    gen.get("paged_kv_capacity_blocks", 1024)))
+        self._engine = ContinuousBatcher(
+            module,
+            max_rows=rows,
+            default_max_new_tokens=int(gen.get("max_new_tokens", 32)),
+            # int or stop-id list — the engine normalizes either
+            eos_token_id=gen.get("eos_token_id"),
+            top_k=int(gen.get("top_k", 0)),
+            seed=int(gen.get("seed", 0)),
+            steps_per_tick=int(gen.get("continuous_steps_per_tick", 1)),
+            prefill_buckets=(
+                tuple(gen["continuous_prefill_buckets"])
+                if gen.get("continuous_prefill_buckets") else None),
+            prefill_chunk=int(gen.get("prefill_chunk", 0)),
+            paged_kv=paged_kv,
+        ).start()
+        self.ready = True
+
     @property
     def _sampling(self) -> bool:
         gen = self.config.get("generate")
@@ -225,7 +300,7 @@ class TorchModel(Model):
         return torch.Generator(device=self.device).manual_seed(
             (seed << 32) + call)
 
-    def predict(self, inputs: np.ndarray) -> np.ndarray:
+    def _check_prompts(self, inputs: np.ndarray) -> np.ndarray:
         x = np.asarray(inputs, dtype=self.config["input_dtype"])
         gen = self.config.get("generate")
         if gen is not None:
@@ -238,6 +313,14 @@ class TorchModel(Model):
                     f"generation prompts must not contain the pad token id "
                     f"{pad}: send equal-length unpadded prompts"
                 )
+        return x
+
+    def predict(self, inputs: np.ndarray) -> np.ndarray:
+        x = self._check_prompts(inputs)
+        gen = self.config.get("generate")
+        if self._engine is not None:
+            out, _ = self._engine_predict_timed(x, gen)
+            return out
         xt = torch.as_tensor(x, device=self.device)
         if self._sampling:
             with self._calls_lock:
@@ -247,6 +330,50 @@ class TorchModel(Model):
         else:
             out = self._predict_fn(xt)
         return out.cpu().numpy()
+
+    def _engine_predict_timed(self, x: np.ndarray, gen: dict):
+        """Engine decode for a prompt batch, with the streaming timing the
+        load-test client reads: (ids (B, max_new_tokens), {"ttft_s",
+        "tokens_per_s"})."""
+        budget = int(gen.get("max_new_tokens", 32))
+        eos = gen.get("eos_token_id")
+        temp = float(gen.get("temperature", 0.0))
+        reqs = [self._engine.submit(row, max_new_tokens=budget,
+                                    temperature=temp) for row in x]
+        # eos may be a stop-id LIST; the clamp token past a retired row is
+        # the FIRST id — generate()'s contract
+        clamp = (int(eos[0]) if isinstance(eos, (list, tuple))
+                 else None if eos is None else int(eos))
+        outs = []
+        for r in reqs:
+            ids = r.result(timeout=300.0)
+            if ids.size < budget:  # pad past the stop with the clamp
+                ids = np.concatenate([
+                    ids, np.full((budget - ids.size,), clamp, np.int32)])
+            outs.append(ids)
+        ttfts = [r.ttft_s for r in reqs if r.ttft_s is not None]
+        rates = [r.tokens_per_s for r in reqs
+                 if r.tokens_per_s not in (None, float("inf"))]
+        timing = {
+            "ttft_s": round(min(ttfts), 6) if ttfts else None,
+            "tokens_per_s": (round(sum(rates), 3) if rates else None),
+        }
+        return np.stack(outs), timing
+
+    def predict_timed(self, inputs: np.ndarray):
+        """predict() plus per-request streaming timing when an engine
+        serves the model — (output, timing|None). The v1 server surfaces
+        the timing so clients measure TTFT from the engine's own token
+        timestamps instead of guessing from HTTP wall time."""
+        if self._engine is None:
+            return self.predict(inputs), None
+        x = self._check_prompts(inputs)
+        return self._engine_predict_timed(x, self.config["generate"])
+
+    def close(self) -> None:
+        """Stop the engine's ticker thread (server shutdown path)."""
+        if self._engine is not None:
+            self._engine.stop()
 
     def postprocess(self, outputs: np.ndarray) -> dict:
         """Classification contract: logits -> class + per-class scores.

@@ -12,6 +12,8 @@ Routes:
   POST /v1/models/{m}:predict      v1 inference ({"instances": [...]})
   GET  /metrics                    request counters and latency histograms
 
+A model served by the continuous-batching engine answers v1 requests with
+the engine's own timing (``"timing": {"ttft_s", "tokens_per_s"}``).
 Micro-batching, the v2 repository API, explain, gRPC and engine/fleet
 gauges come with later slices.
 
@@ -93,6 +95,10 @@ class ModelServer:
         return self
 
     def stop(self) -> None:
+        for m in self.models.values():
+            close = getattr(m, "close", None)
+            if close is not None:
+                close()  # engine ticker threads die with the model
         self.logger.close()
         if self._httpd is not None:
             self._httpd.shutdown()
@@ -205,8 +211,17 @@ class ModelServer:
         instances = body.get("instances")
         if instances is None:
             return 400, {"error": "v1 request must carry 'instances'"}
+        timing = None
         try:
-            out = m(np.asarray(instances))
+            if getattr(m, "_engine", None) is not None:
+                # engine decode: thread the streaming timing (TTFT,
+                # tokens/sec) into the response so clients see engine
+                # truth, not HTTP wall-time guesses
+                raw, timing = m.predict_timed(
+                    m.preprocess(np.asarray(instances)))
+                out = m.postprocess(raw)
+            else:
+                out = m(np.asarray(instances))
         except Exception as exc:  # noqa: BLE001 — a 500, keep serving
             return 500, {"error": f"{type(exc).__name__}: {exc}"}
         if isinstance(out, dict):
@@ -216,6 +231,8 @@ class ModelServer:
                 body = {"predictions": body}
         else:
             body = {"predictions": np.asarray(out).tolist()}
+        if timing is not None:
+            body["timing"] = timing
         return 200, body
 
     def _infer_v2(self, name: str, body: dict) -> tuple[int, dict]:

@@ -21,6 +21,12 @@ FORBIDDEN = re.compile(
 
 def test_port_files_exist():
     assert len(FILES) > 10, FILES
+    # the serving engine's modules and the own copies it needs are checked
+    # below like every other module of the port
+    for rel in ("serving/continuous.py", "serving/fleet/pagedkv.py",
+                "serving/fleet/__init__.py", "tracing/core.py",
+                "tracing/export.py", "tracing/__init__.py"):
+        assert ROOT / "kubeflow_tpu_torch" / rel in FILES, rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -11,10 +11,13 @@ The port serves ``attention="flash"`` (its prefill and logits forward go
 through ``flash_attention``); the JAX side serves the dense config, whose
 generate path is the JAX package's flash generate path exactly (decode
 never reaches its kernel) and whose logits are the same function, without
-tracing the Pallas kernel in interpret mode at load.
+tracing the Pallas kernel in interpret mode at load. The port's
+continuous-engine predictor answers with the JAX package's greedy tokens,
+and its beam predictor with the JAX package's ``beam_search`` ids.
 """
 
 import json
+import threading
 import urllib.error
 import urllib.request
 
@@ -27,6 +30,7 @@ from flax import traverse_util
 
 from kubeflow_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from kubeflow_tpu.models.gpt import GPTLM as JaxGPTLM
+from kubeflow_tpu.models.gpt import beam_search as jax_beam_search
 from kubeflow_tpu.serving.model import JaxModel
 from kubeflow_tpu.serving.model import save_predictor as jax_save_predictor
 from kubeflow_tpu_torch.convert import (
@@ -44,6 +48,10 @@ except RuntimeError:  # the interop pool can be sized once per process
     pass
 
 GEN = {"max_new_tokens": 5}
+# the continuous engine over a paged pool, chunked prefill; and beam search
+CONT = {**GEN, "continuous": True, "continuous_rows": 3, "prefill_chunk": 4,
+        "paged_kv_block": 4}
+BEAMS = 3
 FLASH = {"attention": "flash", "attention_block": 8}
 PROMPT = np.random.RandomState(4).randint(1, 512, (2, 6)).astype(np.int32)
 IDS = np.random.RandomState(6).randint(1, 512, (2, 16)).astype(np.int32)
@@ -79,18 +87,28 @@ def served(tmp_path_factory):
                    size="tiny", config=FLASH)
     save_predictor(root / "logits", "gpt-lm", sd, IDS, size="tiny",
                    config=FLASH)
+    save_predictor(root / "cont", "gpt-lm", sd, PROMPT, generate=CONT,
+                   size="tiny", config=FLASH)
+    save_predictor(root / "beam", "gpt-lm", sd, PROMPT,
+                   generate={**GEN, "num_beams": BEAMS}, size="tiny",
+                   config=FLASH)
     jax_gen = JaxModel("gen", root / "jax_gen")
     jax_gen.load()
     jax_logits = np.asarray(jax.jit(JaxGPTLM(JaxGPTConfig.tiny()).apply)(
         variables, jnp.asarray(IDS)))
-    srv = torch_server.ModelServer(
-        [TorchModel("gen", root / "gen", device="cpu"),
-         TorchModel("logits", root / "logits", device="cpu")],
-        port=0, host="127.0.0.1").start()
+    jax_beam = np.asarray(jax.jit(lambda v, p: jax_beam_search(
+        JaxGPTLM(JaxGPTConfig.tiny()), v, p, GEN["max_new_tokens"],
+        BEAMS)[0])(variables, jnp.asarray(PROMPT)))
+    models = [TorchModel(name, root / name, device="cpu")
+              for name in ("gen", "logits", "cont", "beam")]
+    srv = torch_server.ModelServer(models, port=0, host="127.0.0.1").start()
     try:
-        yield srv, {"gen": jax_gen, "logits": jax_logits}, root
+        yield srv, {"gen": jax_gen, "logits": jax_logits,
+                    "beam": jax_beam}, root
     finally:
         srv.stop()
+        # stop() closed the engine: its ticker thread is gone
+        assert models[2]._engine._thread is None
 
 
 def test_generate_request_matches_jax(served):
@@ -100,6 +118,53 @@ def test_generate_request_matches_jax(served):
     assert code == 200, body
     assert np.asarray(body["predictions"]).shape == (2, GEN["max_new_tokens"])
     assert body["predictions"] == jax_ref["gen"](PROMPT)["predictions"]
+
+
+def test_continuous_requests_match_jax(served):
+    """The engine predictor over HTTP: two concurrent clients, each answer
+    the JAX package's greedy tokens, with the engine's own timing; the
+    repeat of a prompt seeds from the paged pool."""
+    srv, jax_ref, root = served
+    want = jax_ref["gen"](PROMPT)["predictions"]
+    bodies = [None, None]
+
+    def client(i):
+        bodies[i] = http(f"{srv.url}/v1/models/cont:predict",
+                         {"instances": PROMPT.tolist()})
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    for code, body, _ in bodies:
+        assert code == 200, body
+        assert body["predictions"] == want
+        assert body["timing"]["ttft_s"] > 0
+    engine = srv.models["cont"]._engine
+    assert engine.prefill_tokens_reused > 0
+    code, body, _ = http(f"{srv.url}/v1/models/cont:predict",
+                         {"instances": [[5, 0, 7]]})
+    assert code == 500 and "pad token" in body["error"]
+
+
+def test_beam_request_matches_jax(served, tmp_path):
+    srv, jax_ref, root = served
+    code, body, _ = http(f"{srv.url}/v1/models/beam:predict",
+                         {"instances": PROMPT.tolist()})
+    assert code == 200, body
+    assert body["predictions"] == jax_ref["beam"].tolist()
+    sd = gpt_params_from_flax(
+        dict(np.load(root / "beam" / "params.npz")), GPTConfig.tiny())
+    for gen, match in (({"num_beams": 2, "continuous": True}, "beam search"),
+                       ({"num_beams": 2, "temperature": 0.5},
+                        "mutually exclusive"),
+                       ({"num_beams": 2, "eos_token_id": 3}, "eos_token_id")):
+        d = save_predictor(tmp_path / str(len(match)), "gpt-lm", sd, PROMPT,
+                           generate=gen, size="tiny")
+        with pytest.raises(ValueError, match=match):
+            TorchModel("m", d, device="cpu").load()
 
 
 def test_logits_request_matches_jax(served):
@@ -163,8 +228,9 @@ def test_unported_options_and_cuda_request_raise(served, tmp_path):
                            str(root / "gen")])
     sd = gpt_params_from_flax(
         dict(np.load(root / "gen" / "params.npz")), GPTConfig.tiny())
-    for gen, match in (({"num_beams": 2}, "beam search"),
-                       ({"continuous": True}, "continuous batching")):
+    for gen, match in (
+            ({"continuous": True, "fleet_replicas": 2}, "item 5"),
+            ({"continuous": True, "continuous_draft_dir": "d"}, "item 4b")):
         d = save_predictor(tmp_path / match.replace(" ", "_"), "gpt-lm", sd,
                            PROMPT, generate=gen, size="tiny")
         with pytest.raises(NotImplementedError, match=match):
