@@ -47,6 +47,28 @@ Phases, each fatal on failure:
      sampled request repeated with its seed repeats; prints TTFT p50/p99,
      aggregate tokens/s, dispatches, prefill counts, peak memory and
      flash_fwd at the engine's prefill shape
+  8. speculative decoding and the in-process fleet (run last, beside
+     phase 7's figures):
+     (a) speculative_generate on GPT-2 small in f32, the draft the target's
+     weights in a second module, 128-token prompt, 64 new tokens, gamma 4:
+     every rejection at a near-tie of the target's top two logits (1e-4),
+     every token within 1e-3 of its step's max under teacher forcing, 24
+     flash_fwd launches (both prompts' prefills, no verify block); (b) the
+     speculative engine behind ModelServer through continuous_draft_dir, a
+     6-layer draft (distilgpt2's shapes, the target's first blocks), bf16,
+     phase 7's 16 greedy requests plus one sampled: greedy tokens as phase
+     7's check (a), flash_fwd launches = 12 x target + 6 x draft prefills
+     from position 0 (spec rounds none), the sampled request repeats with
+     its key; acceptance, tokens per dispatch, tokens/s, TTFT and memory
+     beside phase 7's; (c) fleet_replicas 2 over one pool behind
+     ModelServer: decode dispatch per engine while both decode, then phase
+     7's greedy traffic with the replica carrying the first request killed
+     at its first token (dropped 0, no failure, >= 1 requeue resumed from
+     its chain, tokens as (a)), then a tightened TTFT SLO answers 503 with
+     Retry-After >= 1; (d) a disaggregated prefill/decode pair over one
+     pool under run_loadtest_sync (8 prompts, 4 longer than the prefill
+     chunk): all complete, no prompt position computed on the decode
+     replica, tokens as (a)
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Every number is printed beside the card's
@@ -79,6 +101,13 @@ ENGINE_PREFIX, ENGINE_SHARED, ENGINE_REQUESTS, ENGINE_CLIENTS = 64, 8, 16, 8
 ENGINE_SAMPLED, ENGINE_TEMP, ENGINE_TOP_K = 2, 0.8, 50
 ENGINE_RESUME_AT, ENGINE_RESUME_NEW, ENGINE_BEAMS, ENGINE_BEAM_NEW = \
     16, 48, 4, 16
+# phase 8: speculative decoding (a 6-layer draft: distilgpt2's shapes), the
+# two-replica fleet (its both-decoding warm-up of FLEET_WARM_NEW tokens), and
+# the disaggregated pair (prompts either side of its prefill chunk)
+SPEC_GAMMA, SPEC_NEW, SPEC_DRAFT_LAYERS = 4, 64, 6
+FLEET_REPLICAS, FLEET_WARM_NEW = 2, 32
+DISAGG_PROMPTS, DISAGG_SHORT, DISAGG_LONG, DISAGG_NEW = 8, 48, 192, 32
+DISAGG_CHUNK, DISAGG_CHUNKS_PER_TICK = 64, 4
 # bf16 logits: one ulp is 2^-8 of the largest |logit| (the limit of
 # tests/test_torch_train.py: 8 ulps)
 BF16_ULP, BF16_ULPS = 2.0 ** -8, 8
@@ -275,24 +304,33 @@ def device_events(fn, iters: int) -> tuple[list, float]:
     return events, wall
 
 
-def device_ms(fn, iters: int, attempts: int = 3) -> float:
+def device_ms(fn, iters: int, attempts: int = 5) -> float:
     """Device time of one fn() call: for each activity name in a trace of
     iters calls, its mean duration times the times a call runs it
     (round(count / iters)), summed. A trace can lose an activity at its
-    edge (19 of 20 on the card, and once none), which this rounding
-    absorbs; an empty trace is retried, up to `attempts` times."""
-    for attempt in range(attempts):
+    edge (19 of 20 on the card), which this rounding absorbs. A trace
+    that holds nothing, or holds some activity in fewer than half of the
+    calls (the card has lost most of one kernel's launches from a 10-call
+    trace, which reads as 0), is retried, up to `attempts` times; then the
+    largest reading stands, and none above 0 raises."""
+    best = 0.0
+    for _ in range(attempts):
         try:
             events, _ = device_events(fn, iters)
-            break
         except AssertionError:
-            if attempt == attempts - 1:
-                raise
-    by_name: dict = {}
-    for name, _, dur in events:
-        by_name.setdefault(name, []).append(dur)
-    return sum(sum(d) / len(d) * round(len(d) / iters)
-               for d in by_name.values()) / 1e3
+            continue
+        by_name: dict = {}
+        for name, _, dur in events:
+            by_name.setdefault(name, []).append(dur)
+        ms = sum(sum(d) / len(d) * round(len(d) / iters)
+                 for d in by_name.values()) / 1e3
+        if all(round(len(d) / iters) for d in by_name.values()):
+            return ms
+        best = max(best, ms)
+    if best > 0:
+        return best
+    raise AssertionError(f"torch.profiler recorded no device time of the "
+                         f"call in {attempts} traces")
 
 
 def busy_us(events) -> float:
@@ -1170,9 +1208,10 @@ def engine_tick_profile(module, card: str) -> None:
     eng.run_until_idle()
 
 
-def phase_engine(peaks, card: str) -> int:
+def phase_engine(peaks, card: str) -> tuple[int, dict]:
     """GPT-2 small served through the continuous-batching engine in bf16.
-    Returns flash_fwd's launches over the engine path's run."""
+    Returns flash_fwd's launches over the engine path's run, and the
+    engine's figures phase 8 prints its own beside."""
     import threading
 
     import torch
@@ -1287,6 +1326,16 @@ def phase_engine(peaks, card: str) -> int:
                 max(t for _, t in ticks["sampled"]))
         alone = [v for v, t in ticks["greedy"] if not both[0] <= t <= both[1]]
         shared = [v for v, t in ticks["greedy"] if both[0] <= t <= both[1]]
+        greedy_n = ENGINE_REQUESTS - ENGINE_SAMPLED
+        figures = {
+            "tokens_per_s": total / wall, "wall_s": wall,
+            "ttft_p50_ms": np.percentile(ttft, 50),
+            "ttft_p99_ms": np.percentile(ttft, 99),
+            "dispatches": dispatches["greedy"],
+            "tokens_per_dispatch": (greedy_n * (ENGINE_NEW - 1)
+                                    / dispatches["greedy"]),
+            "peak_gib": peak, "tick_ms_alone": np.median(alone) * 1e3,
+            "tick_ms_two_engines": np.median(shared) * 1e3}
         print(f"  decode dispatch (forward to read-back) median: greedy "
               f"engine alone {np.median(alone) * 1e3:.2f} ms over "
               f"{len(alone)}, beside the sampled engine "
@@ -1414,7 +1463,569 @@ def phase_engine(peaks, card: str) -> int:
     del models, engines, srv, dense, module, second, straight
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_fwd"]
+    return launches["flash_fwd"], figures
+
+
+# ------------------------------------------------------------- phase 8
+
+
+def zero_launches() -> None:
+    """Every kernel's launch count to 0: a path's run starts here."""
+    from kubeflow_tpu_torch.kernels import KERNELS
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+
+
+def flash_launches() -> int:
+    from kubeflow_tpu_torch.kernels import KERNELS
+
+    return KERNELS["flash_fwd"].launches
+
+
+def prefills_from_zero(tracer) -> tuple[int, int]:
+    """(target, draft) prefill chunks that started at position 0, from the
+    engines' spans: the chunks that run the flash kernel."""
+    def from_zero(attrs):
+        return (attrs.get("tokens_reused", 0) == 0
+                and attrs["pos"] == attrs["tokens_computed"])
+
+    spans = tracer.snapshot()
+    return tuple(sum(1 for s in spans if s["name"] == name
+                     and from_zero(s["attrs"]))
+                 for name in ("engine.prefill_chunk",
+                              "engine.draft_prefill_chunk"))
+
+
+def post_headers(url: str, body: dict) -> tuple[int, dict, dict]:
+    """POST JSON: (status, body, response headers), errors included."""
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read()), dict(exc.headers)
+
+
+def serve_traffic(url: str, prompts: list) -> tuple[list, float]:
+    """Phase 7's client pattern: ENGINE_CLIENTS threads send the prompts in
+    turn, one v1 request each, to `url`. Returns ([(code, body)], wall)."""
+    import threading
+
+    results = [None] * len(prompts)
+
+    def client(c):
+        for i in range(c, len(prompts), ENGINE_CLIENTS):
+            code, body, _ = post(url, {"instances": [prompts[i].tolist()]})
+            results[i] = (code, body)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(ENGINE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client did not finish")
+    return results, time.perf_counter() - t0
+
+
+def served_tokens(results, vocab: int, what: str) -> list:
+    """The (ENGINE_NEW,) token rows of 200 answers; raises on any other."""
+    tokens = []
+    for i, (code, body) in enumerate(results):
+        if code != 200:
+            raise AssertionError(f"{what} request {i} failed: {body}")
+        toks = np.asarray(body["predictions"])
+        if toks.shape != (1, ENGINE_NEW) or toks.min() < 0 \
+                or toks.max() >= vocab:
+            raise AssertionError(f"{what} response {i}: {toks.shape}")
+        tokens.append(toks[0])
+    return tokens
+
+
+def check_greedy(dense, prompts, tokens, what: str, card: str) -> None:
+    """Phase 7's check (a): every token within BF16_ULPS of its step's
+    largest logit under teacher forcing on the plain path (prompts grouped
+    by length)."""
+    worst = (0.0, 0.0)
+    for n in sorted({p.size for p in prompts}):
+        idx = [i for i, p in enumerate(prompts) if p.size == n]
+        gap, ulps = teacher_forced_gap(dense, [prompts[i] for i in idx],
+                                       [tokens[i] for i in idx])
+        worst = max(worst, (ulps, gap))
+    print(f"  {what}: {len(tokens)} greedy requests under teacher forcing "
+          f"on the plain path: chosen logit at most {worst[1]:.4e} below "
+          f"its step's max, {worst[0]:.2f} bf16 ulps (limit {BF16_ULPS}) "
+          f"[{card}]", flush=True)
+    if not worst[0] <= BF16_ULPS:
+        raise AssertionError(f"{what} tokens off the plain path by "
+                             f"{worst[0]} ulps")
+
+
+def tick_overlap(samples: dict) -> dict:
+    """Each engine's decode-dispatch samples (ms) taken while every other
+    engine was also decoding: inside the window all of them span."""
+    ticks = {n: [(v, t) for name, v, t in smp.rows
+                 if name == "serving.decode_tick_s"]
+             for n, smp in samples.items()}
+    lo = max(min(t for _, t in tk) for tk in ticks.values())
+    hi = min(max(t for _, t in tk) for tk in ticks.values())
+    return {n: [v * 1e3 for v, t in tk if lo <= t <= hi]
+            for n, tk in ticks.items()}
+
+
+def phase_spec_solo(card: str) -> int:
+    """Phase 8 (a): speculative_generate on GPT-2 small in f32 with the
+    target's weights in a second module as the draft. Returns flash_fwd's
+    launches over the call."""
+    import torch
+
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
+    from kubeflow_tpu_torch.models.speculative import speculative_generate
+
+    cfg = GPTConfig.small(attention="flash", dtype="float32")
+    sd = GPTLM(cfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED + 20)).state_dict()
+    target, draft = (GPTLM(cfg, device="cuda") for _ in range(2))
+    for m in (target, draft):
+        m.load_state_dict(sd)
+        m.eval()
+    p = np.random.RandomState(SEED + 21).randint(1, cfg.vocab_size,
+                                                 ENGINE_PROMPT)
+    x = torch.as_tensor(p[None], device="cuda").long()
+    # record every verify block (cached, not a prefill) and its logits
+    verifies = []
+    forward = target.forward
+
+    def recording(ids, cache=None, prefill=False, **kw):
+        out = forward(ids, cache=cache, prefill=prefill, **kw)
+        if cache is not None and not prefill:
+            verifies.append((ids[0, 1:].clone(), out[0].clone()))
+        return out
+
+    target.forward = recording
+    speculative_generate(target, draft, x, 8, gamma=SPEC_GAMMA)  # warm
+    verifies.clear()
+    torch.cuda.synchronize()
+    zero_launches()          # the solo speculative path's run starts here
+    t0 = time.perf_counter()
+    out, stats = speculative_generate(target, draft, x, SPEC_NEW,
+                                      gamma=SPEC_GAMMA)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_launches()
+    del target.forward
+    tokens = out[0].cpu().numpy()
+    # each round's accept count from its verify block; at a rejection, the
+    # gap between the target's two largest logits at that step
+    accepts, rejections = [], []
+    for props, logits in verifies:
+        picks = logits.argmax(-1)
+        a = int((props == picks[:SPEC_GAMMA]).long().cumprod(0).sum())
+        accepts.append(a)
+        if a < SPEC_GAMMA:
+            top2 = logits[a].topk(2).values
+            rejections.append((len(accepts), a, (top2[0] - top2[1]).item()))
+    dense = GPTLM(GPTConfig.small(attention="dense", dtype="float32"),
+                  device="cuda")
+    dense.load_state_dict(sd)
+    gap, _ = teacher_forced_gap(dense, [p], [tokens])
+    print(f"phase 8 (a): speculative_generate, GPT-2 small f32, the draft "
+          f"the target's weights in a second module, {ENGINE_PROMPT}-token "
+          f"prompt, {SPEC_NEW} new tokens, gamma {SPEC_GAMMA}: {stats}, "
+          f"{wall:.3f}s ({SPEC_NEW / wall:.1f} tokens/s); rejections (round, "
+          f"step, the target's top-two logit gap there) {rejections}; "
+          f"flash_fwd launches {launches}; teacher-forced gap {gap:.3e} "
+          f"(limit 1e-3) [{card}]", flush=True)
+    if stats["tokens"] != SPEC_NEW or tokens.shape != (SPEC_NEW,):
+        raise AssertionError(f"speculative_generate gave {tokens.shape}")
+    if len(accepts) != stats["rounds"] \
+            or sum(accepts) != stats["drafted_accepted"]:
+        raise AssertionError(f"the verify blocks' accept counts {accepts} "
+                             f"disagree with {stats}")
+    if any(g > 1e-4 for _, _, g in rejections):
+        raise AssertionError(f"a self-draft proposal was rejected away from "
+                             f"a near-tie: {rejections}")
+    if not gap <= 1e-3:
+        raise AssertionError(f"speculative tokens off the plain path: {gap}")
+    if launches != 2 * cfg.num_layers:
+        raise AssertionError(
+            f"flash_fwd launched {launches} times; expected "
+            f"{2 * cfg.num_layers} (both prompts' prefills, no verify)")
+    del target, draft, dense
+    return launches
+
+
+def phase_spec_engine(sd, prompts, tmp: str, card: str, plain: dict) -> int:
+    """Phase 8 (b): the speculative engine behind ModelServer, its draft
+    the target's first SPEC_DRAFT_LAYERS blocks through
+    continuous_draft_dir. Returns flash_fwd's launches over the run."""
+    import torch
+
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
+    from kubeflow_tpu_torch.serving.model import TorchModel, save_predictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.tracing import Tracer
+
+    cfg = {"attention": "flash", "dtype": "bfloat16"}
+    # distilgpt2's shapes; its weights: the target's embeddings, first
+    # blocks and final norm (the published weights are not in the repo)
+    draft_sd = {k: v for k, v in sd.items() if not k.startswith("layers.")
+                or int(k.split(".")[1]) < SPEC_DRAFT_LAYERS}
+    example = np.stack(prompts[:1])
+    save_predictor(f"{tmp}/spec/draft", "gpt-lm", draft_sd, example,
+                   generate={"max_new_tokens": ENGINE_NEW}, size="small",
+                   config={**cfg, "num_layers": SPEC_DRAFT_LAYERS})
+    save_predictor(f"{tmp}/spec", "gpt-lm", sd, example, generate={
+        "continuous": True, "continuous_rows": ENGINE_ROWS,
+        "paged_kv_block": ENGINE_BLOCK, "max_new_tokens": ENGINE_NEW,
+        "continuous_draft_dir": "draft", "speculative_gamma": SPEC_GAMMA},
+        size="small", config=cfg)
+    model = TorchModel("gpt2-spec", f"{tmp}/spec", device="cuda")
+    t0 = time.perf_counter()
+    srv = ModelServer([model], port=0, host="127.0.0.1").start()
+    try:
+        eng = model._engine
+        n_t = eng.module.cfg.num_layers
+        n_d = eng.draft_module.cfg.num_layers
+        tracer, smp = Tracer(), Samples()
+        eng.tracer, eng.tsdb = tracer, smp
+        print(f"phase 8 (b): the speculative engine, GPT-2 small target "
+              f"({n_t} layers) and a {n_d}-layer draft (distilgpt2's "
+              f"shapes), bf16 compute, gamma {eng.gamma}, {ENGINE_ROWS} "
+              f"rows, paged KV block {ENGINE_BLOCK}; server up in "
+              f"{time.perf_counter() - t0:.2f}s [{card}]", flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()      # the speculative engine's run starts here
+        t_run = time.perf_counter()
+        sampled = eng.submit(prompts[-1], max_new_tokens=ENGINE_NEW,
+                             temperature=ENGINE_TEMP, key=SEED + 9)
+        results, _ = serve_traffic(
+            f"{srv.url}/v1/models/gpt2-spec:predict", prompts)
+        first = sampled.result(timeout=600)
+        wall = time.perf_counter() - t_run
+        launches = flash_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tokens = served_tokens(results, eng.module.cfg.vocab_size,
+                               "speculative engine")
+        t_zero, d_zero = prefills_from_zero(tracer)
+        ttft = np.array([body["timing"]["ttft_s"]
+                         for _, body in results]) * 1e3
+        total = (len(prompts) + 1) * ENGINE_NEW
+        ticks = [v * 1e3 for name, v, _ in smp.rows
+                 if name == "serving.decode_tick_s"]
+        rate = eng.spec_accepted / max(eng.spec_proposed, 1)
+        per_dispatch = (total - len(prompts) - 1) / eng.step_count
+        print(f"  {len(prompts)} greedy requests from {ENGINE_CLIENTS} "
+              f"client threads and 1 sampled, {ENGINE_NEW} new tokens each: "
+              f"{wall:.3f}s wall; acceptance {eng.spec_accepted}/"
+              f"{eng.spec_proposed} = {rate:.4f}; tokens per dispatch "
+              f"{per_dispatch:.3f} (phase 7 "
+              f"{plain['tokens_per_dispatch']:.3f}); dispatches "
+              f"{eng.step_count} (phase 7 {plain['dispatches']}); "
+              f"{total / wall:.1f} tokens/s aggregate (phase 7 "
+              f"{plain['tokens_per_s']:.1f}); TTFT p50 "
+              f"{np.percentile(ttft, 50):.2f} ms, p99 "
+              f"{np.percentile(ttft, 99):.2f} ms (phase 7 "
+              f"{plain['ttft_p50_ms']:.2f}, {plain['ttft_p99_ms']:.2f}); "
+              f"decode dispatch (a spec round) median "
+              f"{np.median(ticks):.2f} ms (phase 7's plain step "
+              f"{plain['tick_ms_alone']:.2f}); peak memory {peak:.2f} GiB "
+              f"(phase 7 {plain['peak_gib']:.2f}); prefill_tokens_total "
+              f"{eng.prefill_tokens_total}, reused "
+              f"{eng.prefill_tokens_reused}; flash_fwd launches {launches} "
+              f"over {t_zero} target and {d_zero} draft prefills from "
+              f"position 0 [{card}]", flush=True)
+        if launches != n_t * t_zero + n_d * d_zero \
+                or d_zero != len(prompts) + 1:
+            raise AssertionError(
+                f"flash_fwd launched {launches} times; expected {n_t} x "
+                f"{t_zero} target + {n_d} x {d_zero} draft prefills from "
+                "position 0 and none in a spec round")
+        dense = GPTLM(GPTConfig.small(attention="dense", dtype="bfloat16"),
+                      device="cuda")
+        dense.load_state_dict(sd)
+        check_greedy(dense, prompts, tokens, "(b) speculative engine", card)
+        # repeated now, the prompt's K/V come from the pool and its last
+        # position runs the masked path where the traffic's admission ran
+        # the flash kernel: the repeats are held against each other
+        a, b, other = (eng.submit(
+            prompts[-1], max_new_tokens=ENGINE_NEW, temperature=ENGINE_TEMP,
+            key=key) for key in (SEED + 9, SEED + 9, SEED + 10))
+        a, b, other = (r.result(timeout=600) for r in (a, b, other))
+        print(f"  sampled (temperature {ENGINE_TEMP}, engine top_k 0) twice "
+              f"with one key: equal {np.array_equal(a, b)}; another key "
+              f"differs {not np.array_equal(a, other)}; equal to the "
+              f"traffic's draw (prefilled through the kernel) "
+              f"{np.array_equal(a, first)} [{card}]", flush=True)
+        if not np.array_equal(a, b) or np.array_equal(a, other):
+            raise AssertionError("speculative sampling is not "
+                                 "deterministic per key")
+    finally:
+        srv.stop()
+    return launches
+
+
+def phase_fleet(sd, prompts, tmp: str, card: str, plain: dict) -> int:
+    """Phase 8 (c): a two-replica fleet over one pool behind ModelServer,
+    a replica killed at the first token, then an admission shed. Returns
+    flash_fwd's launches over the drill."""
+    import threading
+
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
+    from kubeflow_tpu_torch.serving.model import TorchModel, save_predictor
+    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.tracing import Tracer
+
+    save_predictor(f"{tmp}/fleet", "gpt-lm", sd, np.stack(prompts[:1]),
+                   generate={"continuous": True,
+                             "continuous_rows": ENGINE_ROWS,
+                             "paged_kv_block": ENGINE_BLOCK,
+                             "max_new_tokens": ENGINE_NEW,
+                             "fleet_replicas": FLEET_REPLICAS},
+                   size="small", config={"attention": "flash",
+                                         "dtype": "bfloat16"})
+    model = TorchModel("gpt2-fleet", f"{tmp}/fleet", device="cuda")
+    srv = ModelServer([model], port=0, host="127.0.0.1").start()
+    url = f"{srv.url}/v1/models/gpt2-fleet:predict"
+    try:
+        router = model._fleet
+        n_layers = router.replicas[0].engine.module.cfg.num_layers
+        samples = {r.name: Samples() for r in router.replicas}
+        for r in router.replicas:
+            r.engine.tsdb = samples[r.name]
+        # both replicas decoding at once, away from the drill's prompts
+        rng = np.random.RandomState(SEED + 31)
+        vocab = router.replicas[0].engine.module.cfg.vocab_size
+        warm = [router.submit(rng.randint(1, vocab, ENGINE_PROMPT),
+                              max_new_tokens=FLEET_WARM_NEW)
+                for _ in range(2 * ENGINE_ROWS)]
+        for h in warm:
+            h.result(timeout=600)
+        both = tick_overlap(samples)
+        print(f"phase 8 (c): a {FLEET_REPLICAS}-replica fleet over one "
+              f"pool, GPT-2 small bf16; {2 * ENGINE_ROWS} requests of "
+              f"{FLEET_WARM_NEW} tokens with both replicas decoding: decode "
+              f"dispatch median " + ", ".join(
+                  f"{n} {np.median(v):.2f} ms over {len(v)}"
+                  for n, v in both.items())
+              + f" (phase 7: one engine alone "
+              f"{plain['tick_ms_alone']:.2f} ms, two engine threads "
+              f"{plain['tick_ms_two_engines']:.2f} ms) [{card}]", flush=True)
+        tracer = Tracer()
+        router.wire_monitoring(tracer=tracer)
+        base = dict(router.metrics)
+        killed = {}
+
+        def killer():
+            # the replica carrying the first request to have its first
+            # token is killed then and there
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline:
+                for rep in router.replicas:
+                    if any(r is not None and r.tokens
+                           for r in list(rep.engine._rows)):
+                        killed["at"] = time.perf_counter()
+                        killed["name"] = rep.name
+                        router.kill_replica(rep.name)
+                        return
+                time.sleep(0.0005)
+
+        zero_launches()      # the fleet drill's run starts here
+        watcher = threading.Thread(target=killer)
+        t_run = time.perf_counter()
+        watcher.start()
+        results, wall = serve_traffic(url, prompts)
+        watcher.join(timeout=600)
+        launches = flash_launches()
+        m = {k: v - base.get(k, 0) for k, v in router.metrics.items()}
+        t_zero, _ = prefills_from_zero(tracer)
+        dropped = sum(code != 200 for code, _ in results)
+        ttft = np.array([body["timing"]["ttft_s"] for code, body in results
+                         if code == 200]) * 1e3
+        print(f"  {len(prompts)} requests from {ENGINE_CLIENTS} client "
+              f"threads, {killed.get('name')} killed at the first token "
+              f"{killed.get('at', t_run) - t_run:.3f}s into the run: "
+              f"dropped {dropped}; {wall:.3f}s wall, "
+              f"{len(prompts) * ENGINE_NEW / wall:.1f} tokens/s (phase 7 "
+              f"{plain['tokens_per_s']:.1f}); TTFT p50 "
+              f"{np.percentile(ttft, 50):.2f} ms, p99 "
+              f"{np.percentile(ttft, 99):.2f} ms (phase 7 "
+              f"{plain['ttft_p50_ms']:.2f}, {plain['ttft_p99_ms']:.2f}); "
+              f"this run's counters {m}; router snapshot "
+              f"{router.snapshot()}; flash_fwd launches {launches} over "
+              f"{t_zero} prefills from position 0 [{card}]", flush=True)
+        if dropped or m["requests_failed_total"] \
+                or m["replica_kills_total"] != 1 \
+                or m["requests_requeued_total"] < 1 \
+                or m["requeues_resumed_total"] < 1:
+            raise AssertionError(f"the kill drill: dropped {dropped}, {m}")
+        if launches != n_layers * t_zero:
+            raise AssertionError(
+                f"flash_fwd launched {launches} times; expected {n_layers} "
+                f"x {t_zero} prefills from position 0")
+        dense = GPTLM(GPTConfig.small(attention="dense", dtype="bfloat16"),
+                      device="cuda")
+        dense.load_state_dict(sd)
+        check_greedy(dense, prompts, served_tokens(
+            results, dense.cfg.vocab_size, "fleet"),
+            "(c) fleet after the kill", card)
+        # tighten the SLO until a v1 request is shed
+        slo, shed = 1.0, None
+        for _ in range(12):
+            router.ttft_slo_s = slo
+            code, body, headers = post_headers(
+                url, {"instances": [prompts[0].tolist()]})
+            if code == 503:
+                shed = (body, headers)
+                break
+            if code != 200:
+                raise AssertionError(f"shed probe: {code} {body}")
+            slo /= 10
+        router.ttft_slo_s = 0.0
+        if shed is None:
+            raise AssertionError("no request was shed down to a "
+                                 f"{slo * 10:.1e}s TTFT SLO")
+        retry = shed[1].get("Retry-After")
+        print(f"  ttft_slo_s {slo:.1e}: 503, Retry-After {retry}, body "
+              f"{shed[0]} [{card}]", flush=True)
+        if retry is None or int(retry) < 1 or not shed[0].get("request_id"):
+            raise AssertionError(f"the shed answer lacks Retry-After or "
+                                 f"its request id: {shed}")
+    finally:
+        srv.stop()
+    return launches
+
+
+def phase_disagg(module, dense, card: str) -> int:
+    """Phase 8 (d): one prefill replica and one decode replica over one
+    pool, driven by run_loadtest_sync. Returns flash_fwd's launches."""
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.fleet import (
+        FleetRouter,
+        PagedKVPool,
+        run_loadtest_sync,
+    )
+    from kubeflow_tpu_torch.tracing import Tracer
+
+    pool = PagedKVPool(ENGINE_BLOCK, 1024)
+    pre = ContinuousBatcher(module, max_rows=ENGINE_ROWS, paged_kv=pool,
+                            prefill_chunk=DISAGG_CHUNK,
+                            max_chunks_per_tick=DISAGG_CHUNKS_PER_TICK)
+    dec = ContinuousBatcher(module, max_rows=ENGINE_ROWS, paged_kv=pool,
+                            prefill_chunk=DISAGG_CHUNK)
+    tracer = Tracer()
+    router = FleetRouter([("prefill-0", pre, "prefill"),
+                          ("decode-0", dec, "decode")], tracer=tracer)
+    rng = np.random.RandomState(SEED + 32)
+    prompts = [rng.randint(1, module.cfg.vocab_size,
+                           DISAGG_LONG if i % 2 else DISAGG_SHORT)
+               .astype(np.int32) for i in range(DISAGG_PROMPTS)]
+    handles = []
+    submit = router.submit
+
+    def keep(*a, **kw):
+        handles.append(submit(*a, **kw))
+        return handles[-1]
+
+    router.submit = keep
+    zero_launches()          # the disaggregated pair's run starts here
+    t0 = time.perf_counter()
+    report = run_loadtest_sync(router, prompts, seed=SEED + 32,
+                               mean_gap_ticks=1.0, new_tokens=DISAGG_NEW)
+    wall = time.perf_counter() - t0
+    launches = flash_launches()
+    s = report.summary()
+    t_zero, _ = prefills_from_zero(tracer)
+    print(f"phase 8 (d): a disaggregated pair (1 prefill replica, chunk "
+          f"{DISAGG_CHUNK}, {DISAGG_CHUNKS_PER_TICK} chunks a tick; 1 "
+          f"decode replica) over one pool, {DISAGG_PROMPTS} seeded prompts "
+          f"of {DISAGG_SHORT} and {DISAGG_LONG} tokens, {DISAGG_NEW} new "
+          f"each, run_loadtest_sync: {wall:.3f}s, {s}; handoffs "
+          f"{router.metrics['prefill_handoffs_total']}; prompt positions "
+          f"computed on the decode replica {dec.prefill_tokens_total}; "
+          f"flash_fwd launches {launches} over {t_zero} prefill chunks from "
+          f"position 0 [{card}]", flush=True)
+    if s["completed"] != DISAGG_PROMPTS or s["dropped"]:
+        raise AssertionError(f"the disaggregated pair: {s}")
+    if dec.prefill_tokens_total or \
+            router.metrics["prefill_handoffs_total"] != DISAGG_PROMPTS:
+        raise AssertionError("a prompt occupied a decode slot")
+    if launches != module.cfg.num_layers * t_zero \
+            or t_zero != DISAGG_PROMPTS:
+        raise AssertionError(
+            f"flash_fwd launched {launches} times over {t_zero} prefills "
+            f"from position 0; expected {module.cfg.num_layers} each")
+    tokens = [next(np.asarray(h.tokens) for h in handles
+                   if np.array_equal(h.prompt, p)) for p in prompts]
+    check_greedy(dense, prompts, tokens, "(d) disaggregated pair", card)
+    return launches
+
+
+def phase_spec_fleet(peaks, card: str, plain: dict) -> int:
+    """Phase 8: speculative decoding, solo (a) and in the engine (b), the
+    two-replica fleet with its kill drill and shed (c), and the
+    disaggregated pair (d). Returns flash_fwd's launches over their runs."""
+    import torch
+
+    from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        flash_forward_plain,
+    )
+
+    t0 = time.perf_counter()
+    launches = phase_spec_solo(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 7's weights and greedy traffic
+    cfg = GPTConfig.small(attention="flash", dtype="bfloat16")
+    sd = GPTLM(cfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED + 5)).state_dict()
+    prompts, _ = engine_prompts(cfg.vocab_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += phase_spec_engine(sd, prompts, tmp, card, plain)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches += phase_fleet(sd, prompts, tmp, card, plain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    module = GPTLM(cfg, device="cuda")
+    module.load_state_dict(sd)
+    dense = GPTLM(GPTConfig.small(attention="dense", dtype="bfloat16"),
+                  device="cuda")
+    dense.load_state_dict(sd)
+    launches += phase_disagg(module.eval(), dense, card)
+    # flash_fwd at the disaggregated prefill chunk's shape
+    gen_ = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    q, k, v, bias = make_attention_inputs(1, DISAGG_CHUNK, 12, 64,
+                                          torch.bfloat16, 0, gen_)
+    o_k, _ = flash_fwd(q, k, v, bias, True, 0)
+    o_p, _ = flash_forward_plain(q, k, v, bias, 128, True, 0)
+    err_o = (o_k.float() - o_p.float()).abs().max().item()
+    kernel = functools.partial(flash_fwd, q, k, v, bias, True, 0)
+    bound_ms, bound_by = attention_bound(1, 12, DISAGG_CHUNK, DISAGG_CHUNK,
+                                         64, "bfloat16", True, 0, peaks)
+    print(f"  flash_fwd at the prefill chunk's shape (1, {DISAGG_CHUNK}, "
+          f"12, 64) bf16 causal: err_o {err_o:.3e} (tol 2e-2), "
+          f"kernel_ms={time_ms(kernel, 50):.5f} "
+          f"dev={device_ms(kernel, 50):.5f} bound_ms={bound_ms:.5f} "
+          f"({bound_by}) sdpa_causal "
+          f"dev={device_ms(sdpa_causal_call(q, k, v), 50):.5f} [{card}]",
+          flush=True)
+    if not err_o <= 2e-2:
+        raise AssertionError(f"flash_fwd at the chunk shape: {err_o}")
+    print(f"phase 8 took {time.perf_counter() - t0:.1f}s [{card}]",
+          flush=True)
+    del module, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1448,11 +2059,18 @@ def main() -> int:
     serve_launches = phase_serve(card)
     print(f"  serving path: flash_fwd launches {serve_launches} [{card}]",
           flush=True)
-    engine_launches = phase_engine(peaks, card)
+    engine_launches, plain = phase_engine(peaks, card)
     print(f"  engine path: flash_fwd launches {engine_launches} [{card}]",
           flush=True)
     timings.update(phase_backward(peaks, card, routes))
     launches, step_ms = phase_train(card)
+    # phase 8 comes last: run between phases 7 and 5, it was followed by
+    # torch.profiler traces that lost a kernel's launches at the training
+    # shape (see PERF.md, Open questions)
+    spec_launches = phase_spec_fleet(peaks, card, plain)
+    print(f"  speculative and fleet paths: flash_fwd launches "
+          f"{spec_launches} [{card}]", flush=True)
+    engine_launches += spec_launches
     per_step = launches["flash_bwd_dq"] // TRAIN_STEPS  # one per layer
     attn_ms = per_step * sum(t["ms"] for t in timings.values())
     # SDPA's backward stands beside dq and dkv together: count it once
@@ -1475,11 +2093,12 @@ def main() -> int:
         raise AssertionError(f"the bf16 tensor-core kernels spill {spill64} "
                              "bytes at D = 64")
 
-    # flash_fwd's launches: the training path's and the engine path's
+    # flash_fwd's launches: the training path's and the engine paths'
     launches["flash_fwd"] += engine_launches
     print(f"flash_fwd launches: training "
-          f"{launches['flash_fwd'] - engine_launches}, engine "
-          f"{engine_launches} [{card}]", flush=True)
+          f"{launches['flash_fwd'] - engine_launches}, engine, speculative "
+          f"and fleet paths (phases 7-8) {engine_launches} [{card}]",
+          flush=True)
     record = {"kernels": [{
         "name": name,
         "route": "cuda",

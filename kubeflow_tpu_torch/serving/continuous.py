@@ -33,9 +33,19 @@ true length) and the FIRST chunk of a chunked prefill with nothing seeded
 from the pool; a suffix after a seeded prefix, a later chunk and every
 decode step take the masked attention over the whole cache.
 
-The steps of a tick are a Python loop where the reference scans; decode
-attention is plain PyTorch, as the reference's is plain jnp. Speculative
-decoding (``draft_module``) is ROADMAP Queue A item 4b.
+Speculative mode (``draft_module``, ``gamma``): a draft model proposes
+gamma tokens a row, the target verifies every row's proposals in ONE
+(R, gamma+1) forward, and each row accepts its own prefix and rewinds to
+its own depth (the solo ``models.speculative`` scheme applied rowwise
+through the per-row cache index). Greedy rows stay EXACTLY the target's
+greedy decode; sampled rows run the rejection scheme with draws keyed by
+(the request's key, depth*(gamma+3)+j). Both models' admission prefills
+from index 0 pass ``prefill=True``; the verify block, at an index past 0,
+never does.
+
+The steps of a tick, and a spec round's draft steps, are a Python loop
+where the reference scans; decode attention is plain PyTorch, as the
+reference's is plain jnp.
 """
 
 from __future__ import annotations
@@ -188,7 +198,11 @@ class _InFlight:
 class _PendingPrefill:
     """A seated row whose prompt is still prefilling (chunked admission):
     the batch-1 row cache being built, the next position to compute, and
-    the pool refs backing any reused prefix."""
+    the pool refs backing any reused prefix. With a draft model the
+    draft's own batch-1 cache marches through the same chunk schedule
+    (d_cache/d_pos) — admission completes when BOTH are done. A resume
+    row (`resume`) has its target cache fully seeded from the pool and
+    only waits on the draft (no draft: it never pends at all)."""
 
     req: _InFlight
     ids: np.ndarray
@@ -196,6 +210,9 @@ class _PendingPrefill:
     cache: object
     last_logits: object = None
     match_refs: list = field(default_factory=list)
+    d_cache: object = None
+    d_pos: int = 0
+    resume: bool = False
 
 
 class ContinuousBatcher:
@@ -214,7 +231,7 @@ class ContinuousBatcher:
                  eos_token_id=None, top_k: int = 0,
                  seed: int = 0, steps_per_tick: int = 1,
                  prefill_buckets: tuple[int, ...] | None = None,
-                 draft_module=None,
+                 draft_module=None, gamma: int = 4,
                  prefill_chunk: int = 0, paged_kv=None,
                  block_budget: bool = False, max_chunks_per_tick: int = 1,
                  tracer=None, tsdb=None):
@@ -224,10 +241,6 @@ class ContinuousBatcher:
         # object with .record(name, value)): decode-tick and TTFT samples
         # for an SLO monitor. Both default off at zero cost on the tick
         # path.
-        if draft_module is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_module) is ported with ROADMAP "
-                "Queue A item 4b")
         self.tracer = tracer
         self.tsdb = tsdb
         cfg = module.cfg
@@ -269,6 +282,31 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"{what} requires the full KV cache: ring-slot "
                     "identity is ambiguous for seeded/partial prefixes")
+        # speculative mode: a draft proposes gamma tokens a row, the
+        # target verifies all rows' proposals in ONE (R, gamma+1) pass,
+        # and each row rewinds to ITS accepted length through the per-row
+        # cache index. One spec round per tick.
+        self.draft_module = draft_module
+        self.gamma = int(gamma)
+        if draft_module is not None:
+            for m, name in ((module, "target"), (draft_module, "draft")):
+                if m.cfg.kv_cache_capacity:
+                    raise ValueError(
+                        f"{name} uses a rolling KV cache — speculative "
+                        "rewind makes ring-slot identity ambiguous")
+            if draft_module.cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft must share the target vocabulary")
+            if prefill_buckets is not None:
+                raise ValueError(
+                    "speculative engine does not support prefill_buckets "
+                    "yet: the draft prefill would need the same pad-rewind")
+            if steps_per_tick != 1:
+                raise ValueError(
+                    "speculative engine runs one spec round per tick "
+                    "(gamma amortizes the dispatch); steps_per_tick must "
+                    "be 1")
+            if self.gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
         self.module = module
         self.max_rows = int(max_rows)
         self.max_len = int(cfg.max_len)
@@ -328,13 +366,19 @@ class ContinuousBatcher:
         self._chunk_order: list[int] = []  # FIFO of pending slots
         self._row_template = None  # lazy batch-1 zero cache twin
         # per-row cache depth (prompt + cache-written decode positions):
-        # host-side truth like _toks — the paged chain-append's
-        # extraction start
+        # host-side truth like _toks — the spec round's rewind base AND
+        # the paged chain-append's extraction start
         self._depths = np.zeros((self.max_rows,), np.int64)
+        if draft_module is not None:
+            self._dcache = draft_module.init_cache(self.max_rows)
         #: prefill-unit accounting (the prefix-reuse proof reads these):
         #: tokens the model actually computed vs tokens seeded for free
         self.prefill_tokens_total = 0
         self.prefill_tokens_reused = 0
+        #: speculative acceptance over the in-flight rows of every spec
+        #: round: draft proposals made, and those the target accepted
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     # ---------------------------------------------------------------- API
 
@@ -384,7 +428,22 @@ class ContinuousBatcher:
                     f"prompt {ids.size} + budget {budget} needs {need} "
                     f"KV blocks, beyond the pool's capacity "
                     f"{self.paged_kv.capacity_blocks}")
-        if ids.size + budget > self.max_len:
+        if self.draft_module is not None:
+            if temperature > 0 and self.top_k > 0:
+                # greedy rows ignore top_k, so greedy deployments with a
+                # configured top_k keep serving; a SAMPLED row's rejection
+                # scheme must accept against the draft's actual proposal
+                # distribution, which top_k truncation would change
+                raise ValueError(
+                    "sampled rows in the speculative engine do not "
+                    "compose with engine-level top_k")
+            lim = min(self.max_len, self.draft_module.cfg.max_len)
+            if ids.size + budget + self.gamma + 1 > lim:
+                raise ValueError(
+                    f"prompt {ids.size} + max_new_tokens {budget} + "
+                    f"gamma+1 {self.gamma + 1} exceeds max_len {lim} "
+                    "(a verify block may overshoot the budget)")
+        elif ids.size + budget > self.max_len:
             raise ValueError(
                 f"prompt {ids.size} + max_new_tokens {budget} exceeds "
                 f"max_len {self.max_len}")
@@ -479,12 +538,35 @@ class ContinuousBatcher:
         set_cache_indices(row, ids.size)
         return logits[:, ids.size - 1], row
 
+    def _draft_prefill(self, ids: np.ndarray):
+        """Whole-prompt draft prefill of a fresh row from position 0
+        (prefill=True): the batch-1 draft row cache."""
+        row = self.draft_module.init_cache(1)
+        self.draft_module(self._prompt(ids), cache=row, prefill=True)
+        return row
+
+    def _apply_draft_chunk(self, cache, chunk: np.ndarray, prefill: bool):
+        """One draft-prefill chunk on a batch-1 draft row cache, advanced
+        in place (its logits are never needed at admission)."""
+        self.draft_module(self._prompt(chunk), cache=cache, prefill=prefill)
+
     def _apply_chunk(self, cache, chunk: np.ndarray, prefill: bool):
         """One prefill chunk through the model on a batch-1 row cache,
         advanced in place: its last-position logits (1, V). prefill=True
         only where the row's index is 0 (the flash kernel's rule)."""
         return self.module(self._prompt(chunk), cache=cache,
                            prefill=prefill)[:, -1]
+
+    def _draws(self, probs: torch.Tensor, rows: np.ndarray, keys,
+               steps) -> torch.Tensor:
+        """One draw per row r of `rows` from probs[i] (its distribution),
+        with a generator seeded from (the row's key, steps[r])."""
+        drawn = []
+        for i, r in enumerate(rows):
+            self._sampler.manual_seed(stream_seed(keys[r], int(steps[r])))
+            drawn.append(torch.multinomial(probs[i], 1,
+                                           generator=self._sampler))
+        return torch.cat(drawn)
 
     def _pick(self, logits: torch.Tensor, temps: np.ndarray, keys,
               steps) -> torch.Tensor:
@@ -502,12 +584,7 @@ class ContinuousBatcher:
             kth = torch.topk(scaled, self.top_k, dim=-1).values[..., -1:]
             scaled = torch.where(scaled < kth, -torch.inf, scaled)
         probs = torch.softmax(scaled, dim=-1)
-        drawn = []
-        for i, r in enumerate(rows):
-            self._sampler.manual_seed(stream_seed(keys[r], int(steps[r])))
-            drawn.append(torch.multinomial(probs[i], 1,
-                                           generator=self._sampler))
-        return nxt.index_copy(0, idx, torch.cat(drawn))
+        return nxt.index_copy(0, idx, self._draws(probs, rows, keys, steps))
 
     def _pick_first(self, last_logits: torch.Tensor, req: _InFlight) -> int:
         """The first token, from the prefill's (1, V) logits: step 0 of
@@ -529,7 +606,11 @@ class ContinuousBatcher:
                        req: _InFlight) -> None:
         """Seat a row on the chunked/seeded admission path: reuse any
         pooled prefix, then either finish the suffix now (prefill_chunk
-        == 0) or leave the row pending for chunk-per-tick advancement."""
+        == 0) or leave the row pending for chunk-per-tick advancement.
+        With a draft model the draft's batch-1 cache prefills over the
+        SAME chunk schedule (the pool stores only target K/V, so the
+        draft computes every position — it only shapes acceptance speed,
+        never the emitted tokens)."""
         from kubeflow_tpu_torch.serving.fleet.pagedkv import seed_row_cache
 
         template = self._row_cache_template()
@@ -550,8 +631,11 @@ class ContinuousBatcher:
             # seeded from the paged pool, never computed
             req._tracer.event("engine.prefill_seed", parent=req.trace_ctx,
                               tokens_reused=pos)
-        self._pending[slot] = _PendingPrefill(req=req, ids=ids, pos=pos,
-                                              cache=cache, match_refs=refs)
+        pend = _PendingPrefill(req=req, ids=ids, pos=pos, cache=cache,
+                               match_refs=refs)
+        if self.draft_module is not None:
+            pend.d_cache = self.draft_module.init_cache(1)
+        self._pending[slot] = pend
         self._chunk_order.append(slot)
         if not self.prefill_chunk:
             while slot in self._pending:  # suffix in one pass
@@ -563,10 +647,14 @@ class ContinuousBatcher:
         K/V seeds the whole cache (zero prefill compute — the
         disaggregated handoff / kill-requeue admission), the emitted
         tokens are pre-fed without re-firing callbacks, and decode
-        continues from the chain's end."""
+        continues from the chain's end. With a draft model the draft
+        cache still prefills (chunked) over the known token history —
+        draft state is not pooled, but it never changes emitted tokens."""
         from kubeflow_tpu_torch.serving.fleet.pagedkv import seed_row_cache
 
         chain, toks = req._resume
+        full_ids = (np.concatenate([ids, np.asarray(toks[:-1], np.int32)])
+                    if len(toks) > 1 else ids)
         _, kv = self.paged_kv.gather(chain.refs)
         cache = seed_row_cache(self._row_cache_template(), kv,
                                chain.length)
@@ -578,6 +666,19 @@ class ContinuousBatcher:
                 "engine.resume", parent=req.trace_ctx,
                 resumed_positions=int(chain.length),
                 tokens_resumed=len(toks), slot=slot)
+        if self.draft_module is not None:
+            pend = _PendingPrefill(req=req, ids=full_ids,
+                                   pos=len(full_ids), cache=cache,
+                                   resume=True)
+            pend.d_cache = self.draft_module.init_cache(1)
+            self._pending[slot] = pend
+            self._chunk_order.append(slot)
+            self._row_chains[slot] = chain
+            req._resume = None
+            if not self.prefill_chunk:
+                while slot in self._pending:
+                    self._advance_prefill(slot)
+            return
         splice_cache_row(self._cache, cache, slot)
         self._toks[slot] = int(toks[-1])
         self._depths[slot] = chain.length
@@ -586,35 +687,64 @@ class ContinuousBatcher:
 
     def _advance_prefill(self, slot: int) -> None:
         """Run ONE chunk unit (or the whole remaining work when chunking
-        is off) of a pending row; completes admission when the prompt is
-        done."""
+        is off) of a pending row: a target chunk while the prompt suffix
+        remains, plus a draft chunk while the draft cache lags; completes
+        admission when both are done."""
         pend = self._pending[slot]
-        take = (len(pend.ids) - pend.pos if not self.prefill_chunk
-                else min(self.prefill_chunk, len(pend.ids) - pend.pos))
-        chunk = pend.ids[pend.pos:pend.pos + take]
-        # the FIRST computed chunk (no logits yet) carries the seeded
-        # reuse count — reused-vs-computed per chunk off the ledger
-        reused = pend.pos if pend.last_logits is None else 0
-        w0, p0 = time.time(), time.perf_counter()
-        pend.last_logits = self._apply_chunk(pend.cache, chunk,
-                                             prefill=pend.pos == 0)
-        if pend.req._tracer is not None:
-            pend.req._tracer.record_span(
-                "engine.prefill_chunk", w0, time.perf_counter() - p0,
-                parent=pend.req.trace_ctx, tokens_computed=take,
-                tokens_reused=reused, pos=pend.pos + take)
-        pend.pos += take
-        self.prefill_tokens_total += take
-        if pend.pos >= len(pend.ids):
+        whole = not self.prefill_chunk
+        if pend.pos < len(pend.ids):
+            take = (len(pend.ids) - pend.pos if whole
+                    else min(self.prefill_chunk, len(pend.ids) - pend.pos))
+            chunk = pend.ids[pend.pos:pend.pos + take]
+            # the FIRST computed chunk (no logits yet) carries the seeded
+            # reuse count — reused-vs-computed per chunk off the ledger
+            reused = pend.pos if pend.last_logits is None else 0
+            w0, p0 = time.time(), time.perf_counter()
+            pend.last_logits = self._apply_chunk(pend.cache, chunk,
+                                                 prefill=pend.pos == 0)
+            if pend.req._tracer is not None:
+                pend.req._tracer.record_span(
+                    "engine.prefill_chunk", w0, time.perf_counter() - p0,
+                    parent=pend.req.trace_ctx, tokens_computed=take,
+                    tokens_reused=reused, pos=pend.pos + take)
+            pend.pos += take
+            self.prefill_tokens_total += take
+        if pend.d_cache is not None and pend.d_pos < len(pend.ids):
+            take = (len(pend.ids) - pend.d_pos if whole
+                    else min(self.prefill_chunk,
+                             len(pend.ids) - pend.d_pos))
+            chunk = pend.ids[pend.d_pos:pend.d_pos + take]
+            w0, p0 = time.time(), time.perf_counter()
+            self._apply_draft_chunk(pend.d_cache, chunk,
+                                    prefill=pend.d_pos == 0)
+            if pend.req._tracer is not None:
+                # distinct name: draft work is acceptance fuel, not prompt
+                # prefill — its tokens stay out of the reuse ledger
+                pend.req._tracer.record_span(
+                    "engine.draft_prefill_chunk", w0,
+                    time.perf_counter() - p0, parent=pend.req.trace_ctx,
+                    tokens_computed=take, pos=pend.d_pos + take)
+            pend.d_pos += take
+        if pend.pos >= len(pend.ids) and (
+                pend.d_cache is None or pend.d_pos >= len(pend.ids)):
             self._finish_prefill(slot)
 
     def _finish_prefill(self, slot: int) -> None:
         """Admission completes: publish the prompt's K/V to the paged
         pool (becoming the row's lifetime block chain), splice the row
-        cache into the live batch, emit the first token."""
+        cache into the live batch, emit the first token. Resume rows skip
+        publish and first token — their chain and tokens already exist."""
         pend = self._pending.pop(slot)
         self._chunk_order.remove(slot)
         req = pend.req
+        if pend.d_cache is not None:
+            splice_cache_row(self._dcache, pend.d_cache, slot)
+        if pend.resume:
+            # the chain is already held in _row_chains; tokens pre-fed
+            splice_cache_row(self._cache, pend.cache, slot)
+            self._toks[slot] = int(req.tokens[-1])
+            self._depths[slot] = len(pend.ids)
+            return
         if self.paged_kv is not None:
             from kubeflow_tpu_torch.serving.fleet.pagedkv import (
                 SequenceChain,
@@ -667,27 +797,31 @@ class ContinuousBatcher:
         return self.paged_kv.available_blocks() >= need
 
     def _append_decode_kv(self, win: dict[str, torch.Tensor],
-                          active: np.ndarray, window: int) -> None:
+                          active: np.ndarray, window: int,
+                          counts=None) -> None:
         """Grow each alive row's pool block chain with the positions the
         decode dispatch just wrote: the paged pool stays the KV substrate
         for the WHOLE lifetime, so a killed replica's rows can resume
         from their surviving chains and follow-on turns match into the
         generated suffix. `win` is the dispatch's gathered per-row K/V
         window, already on the host. Rows that retired mid-dispatch
-        already released their chain; frozen chains never grow."""
+        already released their chain; frozen chains never grow. `counts`
+        (a spec round): each row appends only the positions it accepted
+        instead of the whole window."""
         for slot in range(self.max_rows):
             if not (active[slot] and self._rows[slot] is not None
                     and slot in self._row_chains
                     and not self._row_chains[slot].frozen):
                 continue
+            n = window if counts is None else int(counts[slot])
             req = self._rows[slot]
             k = len(req.tokens)
             # position p holds the KV of sequence token p; the window
             # [d, d+n) maps to emitted tokens [k-n-1, k-1) (the dispatch
             # INPUTS — the newest token's KV lands next dispatch)
-            ids_seg = req.tokens[k - window - 1:k - 1]
+            ids_seg = req.tokens[k - n - 1:k - 1]
             self._row_chains[slot].append(
-                ids_seg, {p: a[slot] for p, a in win.items()})
+                ids_seg, {p: a[slot, :n] for p, a in win.items()})
 
     @torch.inference_mode()
     def tick(self) -> bool:
@@ -743,6 +877,9 @@ class ContinuousBatcher:
                     tokens_reused=0)
             self.prefill_tokens_total += ids.size
             splice_cache_row(self._cache, row_cache, slot)
+            if self.draft_module is not None:
+                splice_cache_row(self._dcache, self._draft_prefill(ids),
+                                 slot)
             self._depths[slot] = ids.size
             first = self._pick_first(last_logits, req)
             req.push(first)
@@ -765,10 +902,10 @@ class ContinuousBatcher:
         if not active.any():
             with self._lock:
                 return bool(self._queue) or bool(self._pending)
+        if self.draft_module is not None:
+            return self._spec_tick(active)
         # ---- T decode steps for every in-flight row ----------------------
-        temps = np.array([r.temperature if r is not None else 0.0
-                          for r in self._rows], np.float32)
-        keys = [r.key if r is not None else 0 for r in self._rows]
+        temps, keys = self._row_sampling_state()
         starts = np.array([len(r.tokens) if r is not None else 0
                            for r in self._rows], np.int64)
         depths0 = self._depths.copy()  # pre-dispatch: the append window
@@ -823,6 +960,132 @@ class ContinuousBatcher:
         with self._lock:
             pending = bool(self._queue)
         return pending or any(r is not None for r in self._rows)
+
+    def _spec_tick(self, active: np.ndarray) -> bool:
+        """One speculative round for every in-flight row (one dispatch):
+        the draft proposes G tokens a row (G chained batch-R steps, plus
+        one write of the last proposal), the target verifies (R, G+1) in
+        one forward at each row's own index, and each row accepts its own
+        prefix and rewinds to its own depth. Greedy rows accept on
+        argmax-match; sampled rows run the rejection scheme — accept with
+        min(1, p_t/p_d), resample the residual at the first rejection,
+        bonus token from p_t. Draws are keyed by (the request's key,
+        depth*(G+3)+j): j < G the proposals, G the uniforms, G+1 the
+        correction; depth grows every round, so keys never repeat. An
+        all-greedy batch computes no softmax and draws nothing."""
+        temps, keys = self._row_sampling_state()
+        rows = np.flatnonzero(temps > 0)            # the sampled rows
+        sampled = rows.size > 0
+        tsdb = self.tsdb  # one read: live-attach races a torn pair
+        t_dec = time.perf_counter() if tsdb is not None else 0.0
+        G, R = self.gamma, self.max_rows
+        depths = self._depths.copy()
+        key_base = depths * (G + 3)
+        dep, act = self._to_device(depths), self._to_device(active)
+        # every row's index from its host depth; free and pending rows
+        # park at 0 (their slot is overwritten wholesale on admission)
+        set_cache_indices(self._cache, dep, act)
+        set_cache_indices(self._dcache, dep, act)
+        toks = self._to_device(self._toks)
+        if sampled:
+            idx = self._to_device(rows)
+            tp = self._to_device(temps[rows])[:, None]        # (S, 1)
+        # ---- the draft proposes G tokens a row -----------------------------
+        tok, props, d_probs = toks, [], []
+        for j in range(G):
+            row = self.draft_module(tok[:, None],
+                                    cache=self._dcache)[:, -1]   # (R, V)
+            tok = row.argmax(-1)
+            if sampled:
+                probs = torch.softmax(row[idx] / tp, dim=-1)    # (S, V)
+                tok = tok.index_copy(
+                    0, idx, self._draws(probs, rows, keys, key_base + j))
+                d_probs.append(probs)
+            props.append(tok)
+        # the extra draft write: an all-accepted round leaves no unwritten
+        # draft row below the advanced index
+        self.draft_module(tok[:, None], cache=self._dcache)
+        props = torch.stack(props, 1)                           # (R, G)
+        # ---- the target verifies last + all proposals in ONE pass ----------
+        logits = self.module(torch.cat([toks[:, None], props], 1),
+                             cache=self._cache)                 # (R, G+1, V)
+        t_tokens = logits.argmax(-1)
+        ok = props == t_tokens[:, :G]
+        if sampled:
+            p_t = torch.softmax(logits[idx] / tp[..., None], dim=-1)
+            d_p = torch.stack(d_probs, 1)                       # (S, G, V)
+            x = props[idx][..., None]
+            pt_x = p_t[:, :G].gather(-1, x)[..., 0]
+            pd_x = d_p.gather(-1, x)[..., 0]
+            u = []
+            for r in rows:
+                self._sampler.manual_seed(
+                    stream_seed(keys[r], int(key_base[r] + G)))
+                u.append(torch.rand((G,), generator=self._sampler,
+                                    device=self.device))
+            ok_s = torch.stack(u) < torch.clamp(
+                pt_x / pd_x.clamp_min(1e-30), max=1.0)
+            ok = ok.index_copy(0, idx, ok_s)
+        a = torch.cumprod(ok.long(), 1).sum(1)                  # (R,)
+        corr = t_tokens.gather(1, a[:, None])[:, 0]
+        if sampled:
+            residual = (p_t[:, :G] - d_p).clamp_min(0.0)
+            rs = residual.sum(-1, keepdim=True)
+            res_norm = torch.where(rs > 0, residual / rs.clamp_min(1e-30),
+                                   p_t[:, :G])
+            corr_rows = torch.cat([res_norm, p_t[:, G:]], 1)  # (S, G+1, V)
+            picked = corr_rows.gather(1, a[idx][:, None, None].expand(
+                -1, 1, corr_rows.shape[-1]))[:, 0]
+            corr = corr.index_copy(0, idx, self._draws(
+                picked.clamp_min(1e-30), rows, keys, key_base + G + 1))
+        padded = torch.cat([props, props.new_zeros((R, 1))], 1)
+        upd = torch.where(
+            torch.arange(G + 1, device=self.device)[None] < a[:, None],
+            padded, corr[:, None])
+        new_depths = dep + a + 1
+        set_cache_indices(self._cache, new_depths, act)
+        set_cache_indices(self._dcache, new_depths, act)
+        win = None
+        if self.paged_kv is not None:
+            # each row's verify pass wrote [depth, depth + G + 1); the
+            # accepted a + 1 of them are appended below
+            win = torch.stack(list(gather_kv_rows(
+                self._cache, dep, G + 1).values()))
+        self.step_count += 1  # dispatches (the scheduling metric)
+        host = torch.cat([upd, a[:, None]], 1).cpu().numpy()  # one read
+        upd, a = host[:, :-1], host[:, -1]
+        if tsdb is not None:
+            tsdb.record("serving.decode_tick_s",
+                        time.perf_counter() - t_dec)
+        for slot, req in enumerate(self._rows):
+            if req is None or slot in self._pending:
+                continue  # pending rows' round output is garbage
+            self.spec_proposed += G
+            self.spec_accepted += int(a[slot])
+            self._depths[slot] += int(a[slot]) + 1
+            for j in range(int(a[slot]) + 1):
+                req.push(int(upd[slot, j]))
+                self._toks[slot] = int(upd[slot, j])
+                if self._finished(req):
+                    self._retire(slot)  # discard the round's tail
+                    break
+        if win is not None:
+            # each alive row accepted a+1 tokens: its verify pass wrote
+            # valid K/V at [depth, depth + a + 1) — append exactly that
+            self._append_decode_kv(
+                dict(zip(cache_paths(len(self._cache.key)), win.cpu())),
+                active, G + 1, counts=a + 1)
+        with self._lock:
+            pending = bool(self._queue)
+        return pending or any(r is not None for r in self._rows)
+
+    def _row_sampling_state(self) -> tuple[np.ndarray, list]:
+        """(temps (R,) f32, keys (R,)) from the row table — the ONE
+        definition both decode paths (plain tick and _spec_tick) read."""
+        temps = np.array([r.temperature if r is not None else 0.0
+                          for r in self._rows], np.float32)
+        keys = [r.key if r is not None else 0 for r in self._rows]
+        return temps, keys
 
     @staticmethod
     def _finished(req: _InFlight) -> bool:

@@ -196,7 +196,9 @@ class TorchModel(Model):
     ``device="cpu"``): logits mode, or greedy/sampled/beam generation when
     the config has a ``generate`` block; with ``generate.continuous`` the
     requests share a continuous-batching engine (serving/continuous.py) on
-    its own thread."""
+    its own thread — or, with ``generate.fleet_replicas > 1``, a
+    FleetRouter over that many engines sharing one pool; with
+    ``generate.continuous_draft_dir`` every engine is speculative."""
 
     def __init__(self, name: str, model_dir: str | Path,
                  device: str | torch.device = "cuda"):
@@ -205,6 +207,7 @@ class TorchModel(Model):
         self.device = select_device(device)
         self._predict_fn: Callable | None = None
         self._engine = None  # continuous-batching decode engine
+        self._fleet = None   # multi-replica fleet router (serving/fleet)
         self._calls = 0
         self._calls_lock = threading.Lock()
         self.config: dict = {}
@@ -235,23 +238,27 @@ class TorchModel(Model):
         """Continuous batching: concurrent requests interleave decode steps
         on one fixed-row engine instead of serializing whole decodes.
         Greedy or sampling (per-request seeds, engine-static top_k), with
-        chunked prefill and a per-model paged KV pool when configured."""
+        chunked prefill and a per-model paged KV pool when configured; a
+        draft model dir (``continuous_draft_dir``, relative to this model
+        dir unless absolute; ``speculative_gamma``) makes the engine
+        speculative, and ``fleet_replicas > 1`` puts a FleetRouter over
+        that many engines sharing the pool — its SLO admission sheds
+        (``fleet_ttft_slo_s``, ``fleet_retry_after_s``) surface as 503 +
+        Retry-After."""
         from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
 
         if int(gen.get("num_beams", 1)) > 1:
             raise ValueError(
                 "generate config: continuous batching does not "
                 "compose with beam search (num_beams == 1)")
-        if int(gen.get("fleet_replicas", 1)) > 1:
-            raise NotImplementedError(
-                "fleet_replicas > 1 (the serving fleet's router) is ported "
-                "with the pod slice (ROADMAP Queue A item 5)")
-        if gen.get("continuous_draft_dir"):
-            raise NotImplementedError(
-                "continuous_draft_dir (speculative continuous serving) is "
-                "ported with ROADMAP Queue A item 4b")
         module, self.config = load_generative_model(self.model_dir,
                                                     self.device)
+        draft_module = None
+        if gen.get("continuous_draft_dir"):
+            ddir = Path(gen["continuous_draft_dir"])
+            if not ddir.is_absolute():
+                ddir = self.model_dir / ddir
+            draft_module, _ = load_generative_model(ddir, self.device)
         rows = int(gen.get("continuous_rows", 8))
         # warmup outside the engine (its counters and pool stay untouched):
         # a batch-1 prefill of the recorded prompt shape and one decode
@@ -260,9 +267,11 @@ class TorchModel(Model):
         example = torch.zeros(self.config["input_shape"][1:],
                               dtype=torch.int64, device=self.device)[None]
         with torch.inference_mode():
-            module(example, cache=module.init_cache(1), prefill=True)
-            module(example[:, :1].expand(rows, 1),
-                   cache=module.init_cache(rows))
+            for m in (module, draft_module):
+                if m is not None:
+                    m(example, cache=m.init_cache(1), prefill=True)
+                    m(example[:, :1].expand(rows, 1),
+                      cache=m.init_cache(rows))
         paged_kv = None
         if int(gen.get("paged_kv_block", 0)) > 0:
             from kubeflow_tpu_torch.serving.fleet import PagedKVPool
@@ -271,21 +280,37 @@ class TorchModel(Model):
                 block_size=int(gen["paged_kv_block"]),
                 capacity_blocks=int(
                     gen.get("paged_kv_capacity_blocks", 1024)))
-        self._engine = ContinuousBatcher(
-            module,
-            max_rows=rows,
-            default_max_new_tokens=int(gen.get("max_new_tokens", 32)),
-            # int or stop-id list — the engine normalizes either
-            eos_token_id=gen.get("eos_token_id"),
-            top_k=int(gen.get("top_k", 0)),
-            seed=int(gen.get("seed", 0)),
-            steps_per_tick=int(gen.get("continuous_steps_per_tick", 1)),
-            prefill_buckets=(
-                tuple(gen["continuous_prefill_buckets"])
-                if gen.get("continuous_prefill_buckets") else None),
-            prefill_chunk=int(gen.get("prefill_chunk", 0)),
-            paged_kv=paged_kv,
-        ).start()
+
+        def build_engine():
+            return ContinuousBatcher(
+                module,
+                max_rows=rows,
+                default_max_new_tokens=int(gen.get("max_new_tokens", 32)),
+                # int or stop-id list — the engine normalizes either
+                eos_token_id=gen.get("eos_token_id"),
+                top_k=int(gen.get("top_k", 0)),
+                seed=int(gen.get("seed", 0)),
+                steps_per_tick=int(gen.get("continuous_steps_per_tick", 1)),
+                prefill_buckets=(
+                    tuple(gen["continuous_prefill_buckets"])
+                    if gen.get("continuous_prefill_buckets") else None),
+                draft_module=draft_module,
+                gamma=int(gen.get("speculative_gamma", 4)),
+                prefill_chunk=int(gen.get("prefill_chunk", 0)),
+                paged_kv=paged_kv,
+            )
+
+        n_replicas = int(gen.get("fleet_replicas", 1))
+        if n_replicas > 1:
+            from kubeflow_tpu_torch.serving.fleet import FleetRouter
+
+            self._fleet = FleetRouter(
+                [build_engine() for _ in range(n_replicas)],
+                ttft_slo_s=float(gen.get("fleet_ttft_slo_s", 0.0)),
+                retry_after_s=float(gen.get("fleet_retry_after_s", 1.0)),
+            ).start()
+        else:
+            self._engine = build_engine().start()
         self.ready = True
 
     @property
@@ -318,7 +343,7 @@ class TorchModel(Model):
     def predict(self, inputs: np.ndarray) -> np.ndarray:
         x = self._check_prompts(inputs)
         gen = self.config.get("generate")
-        if self._engine is not None:
+        if self._engine is not None or self._fleet is not None:
             out, _ = self._engine_predict_timed(x, gen)
             return out
         xt = torch.as_tensor(x, device=self.device)
@@ -332,14 +357,34 @@ class TorchModel(Model):
         return out.cpu().numpy()
 
     def _engine_predict_timed(self, x: np.ndarray, gen: dict):
-        """Engine decode for a prompt batch, with the streaming timing the
-        load-test client reads: (ids (B, max_new_tokens), {"ttft_s",
-        "tokens_per_s"})."""
+        """Engine/fleet decode for a prompt batch, with the streaming
+        timing the load-test client reads: (ids (B, max_new_tokens),
+        {"ttft_s", "tokens_per_s"}). Fleet admission sheds
+        (FleetOverloaded) propagate — the server maps them to 503 +
+        Retry-After."""
         budget = int(gen.get("max_new_tokens", 32))
         eos = gen.get("eos_token_id")
         temp = float(gen.get("temperature", 0.0))
-        reqs = [self._engine.submit(row, max_new_tokens=budget,
-                                    temperature=temp) for row in x]
+        if self._fleet is not None:
+            # gate ONCE with the whole batch's prompt work, then submit
+            # ungated: a shed on row k would otherwise orphan the k rows
+            # already admitted. A shed here is traced like a submit()-path
+            # shed (record_shed), so the 503 body carries the decision's
+            # span context and request id.
+            from kubeflow_tpu_torch.serving.fleet import FleetOverloaded
+
+            batch_tokens = int(sum(len(row) for row in x))
+            try:
+                self._fleet.admit_or_raise(batch_tokens)
+            except FleetOverloaded as exc:
+                raise self._fleet.record_shed(exc, batch_tokens)
+
+            def submit(row, **kw):
+                return self._fleet.submit(row, gate=False, **kw)
+        else:
+            submit = self._engine.submit
+        reqs = [submit(row, max_new_tokens=budget, temperature=temp)
+                for row in x]
         # eos may be a stop-id LIST; the clamp token past a retired row is
         # the FIRST id — generate()'s contract
         clamp = (int(eos[0]) if isinstance(eos, (list, tuple))
@@ -365,15 +410,17 @@ class TorchModel(Model):
         serves the model — (output, timing|None). The v1 server surfaces
         the timing so clients measure TTFT from the engine's own token
         timestamps instead of guessing from HTTP wall time."""
-        if self._engine is None:
+        if self._engine is None and self._fleet is None:
             return self.predict(inputs), None
         x = self._check_prompts(inputs)
         return self._engine_predict_timed(x, self.config["generate"])
 
     def close(self) -> None:
-        """Stop the engine's ticker thread (server shutdown path)."""
+        """Stop the engine/fleet ticker threads (server shutdown path)."""
         if self._engine is not None:
             self._engine.stop()
+        if self._fleet is not None:
+            self._fleet.stop()
 
     def postprocess(self, outputs: np.ndarray) -> dict:
         """Classification contract: logits -> class + per-class scores.

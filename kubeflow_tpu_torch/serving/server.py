@@ -12,10 +12,12 @@ Routes:
   POST /v1/models/{m}:predict      v1 inference ({"instances": [...]})
   GET  /metrics                    request counters and latency histograms
 
-A model served by the continuous-batching engine answers v1 requests with
-the engine's own timing (``"timing": {"ttft_s", "tokens_per_s"}``).
-Micro-batching, the v2 repository API, explain, gRPC and engine/fleet
-gauges come with later slices.
+A model served by the continuous-batching engine (or a fleet of them)
+answers v1 requests with the engine's own timing (``"timing": {"ttft_s",
+"tokens_per_s"}``); a fleet's admission shed answers 503 with a
+``Retry-After`` header and a body carrying the shed decision's span
+context and request id. Micro-batching, the v2 repository API, explain,
+gRPC and engine/fleet gauges come with later slices.
 
 Run as a pod: python -m kubeflow_tpu_torch.serving.server --model-name m
 --model-dir DIR [--device cuda|cpu]
@@ -54,12 +56,19 @@ def _np_to_datatype(arr: np.ndarray) -> str:
 
 
 class _RawJSON:
-    """Pre-serialized JSON response body (serialized once)."""
+    """Pre-serialized JSON response body (serialized once), with any
+    extra response headers (the fleet's 503 carries Retry-After)."""
 
-    __slots__ = ("data",)
+    __slots__ = ("data", "headers")
 
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, headers: dict | None = None):
         self.data = data
+        self.headers = headers or {}
+
+
+def _retry_after(exc) -> dict:
+    """The shed's Retry-After header: whole seconds, at least 1."""
+    return {"Retry-After": str(max(1, int(round(exc.retry_after_s))))}
 
 
 class ModelServer:
@@ -160,7 +169,11 @@ class ModelServer:
 
     def _logged(self, name: str, protocol: str, req_bytes: int, fn, body):
         t0 = time.perf_counter()
-        code, payload = fn(name, body)
+        # handlers return (code, payload) or (code, payload, headers) —
+        # the fleet's 503 shed carries its Retry-After hint through here
+        out = fn(name, body)
+        code, payload = out[0], out[1]
+        headers = out[2] if len(out) > 2 else None
         # error bodies carry the request id, so a logged 4xx/5xx is
         # greppable back to its X-Request-Id
         rid = get_request_id()
@@ -169,7 +182,7 @@ class ModelServer:
         data = json.dumps(payload).encode()
         self.logger.log(name, protocol, code, time.perf_counter() - t0,
                         req_bytes, len(data))
-        return code, _RawJSON(data)
+        return code, _RawJSON(data, headers)
 
     @staticmethod
     def postprocess_arrays(out) -> list[tuple[str, np.ndarray]]:
@@ -196,6 +209,19 @@ class ModelServer:
             "shape": [-1, *cfg["input_shape"][1:]],
         }
 
+    @staticmethod
+    def _shed_body(exc) -> dict:
+        """The 503 shed response body: error + the shed decision's span
+        context and request id when tracing stamped them."""
+        body = {"error": str(exc)}
+        ctx = getattr(exc, "trace_ctx", None)
+        if ctx is not None:
+            body["trace"] = ctx.to_header()
+        rid = getattr(exc, "request_id", "") or get_request_id()
+        if rid:
+            body["request_id"] = rid
+        return body
+
     def _get_ready_model(self, name: str) -> Model | tuple[int, dict]:
         m = self.models.get(name)
         if m is None:
@@ -204,7 +230,9 @@ class ModelServer:
             return 503, {"error": f"model {name!r} not ready"}
         return m
 
-    def _predict_v1(self, name: str, body: dict) -> tuple[int, dict]:
+    def _predict_v1(self, name: str, body: dict) -> tuple:
+        from kubeflow_tpu_torch.serving.fleet import FleetOverloaded
+
         m = self._get_ready_model(name)
         if isinstance(m, tuple):
             return m
@@ -213,8 +241,9 @@ class ModelServer:
             return 400, {"error": "v1 request must carry 'instances'"}
         timing = None
         try:
-            if getattr(m, "_engine", None) is not None:
-                # engine decode: thread the streaming timing (TTFT,
+            if getattr(m, "_engine", None) is not None \
+                    or getattr(m, "_fleet", None) is not None:
+                # engine/fleet decode: thread the streaming timing (TTFT,
                 # tokens/sec) into the response so clients see engine
                 # truth, not HTTP wall-time guesses
                 raw, timing = m.predict_timed(
@@ -222,6 +251,10 @@ class ModelServer:
                 out = m.postprocess(raw)
             else:
                 out = m(np.asarray(instances))
+        except FleetOverloaded as exc:
+            # the activator's shed contract: the client re-dials after
+            # the hint; the body makes the shed attributable in the trace
+            return 503, self._shed_body(exc), _retry_after(exc)
         except Exception as exc:  # noqa: BLE001 — a 500, keep serving
             return 500, {"error": f"{type(exc).__name__}: {exc}"}
         if isinstance(out, dict):
@@ -235,7 +268,9 @@ class ModelServer:
             body["timing"] = timing
         return 200, body
 
-    def _infer_v2(self, name: str, body: dict) -> tuple[int, dict]:
+    def _infer_v2(self, name: str, body: dict) -> tuple:
+        from kubeflow_tpu_torch.serving.fleet import FleetOverloaded
+
         m = self._get_ready_model(name)
         if isinstance(m, tuple):
             return m
@@ -250,6 +285,9 @@ class ModelServer:
                 dtype=_V2_TO_NP.get(t.get("datatype", "FP32"), np.float32),
             ).reshape(t["shape"])
             out = m(arr)
+        except FleetOverloaded as exc:
+            # same shed contract as v1
+            return 503, self._shed_body(exc), _retry_after(exc)
         except Exception as exc:  # noqa: BLE001
             return 500, {"error": f"{type(exc).__name__}: {exc}"}
         return 200, {
@@ -279,7 +317,9 @@ def _make_handler(server: ModelServer):
                            or new_request_id())
 
         def _reply(self, code: int, payload) -> None:
+            headers = {}
             if isinstance(payload, _RawJSON):
+                headers = payload.headers
                 data, ctype = payload.data, "application/json"
             elif isinstance(payload, str):
                 data, ctype = payload.encode(), "text/plain; version=0.0.4"
@@ -293,6 +333,8 @@ def _make_handler(server: ModelServer):
             self.send_header("Content-Length", str(len(data)))
             if get_request_id():
                 self.send_header("X-Request-Id", get_request_id())
+            for key, value in headers.items():
+                self.send_header(key, value)
             self.end_headers()
             self.wfile.write(data)
 

@@ -342,8 +342,10 @@ def test_sampling_per_seed_and_independent_of_batch_and_ticks(lm, jobs,
 
 def test_refusals(lm):
     model = lm[2]
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        ContinuousBatcher(model, draft_module=model)
+    # speculative mode runs one round a tick (tests/test_torch_spec_engine
+    # holds the rest of its refusals)
+    with pytest.raises(ValueError, match="steps_per_tick"):
+        ContinuousBatcher(model, draft_module=model, steps_per_tick=2)
     with pytest.raises(ValueError, match="replaces bucketed prefill"):
         ContinuousBatcher(model, prefill_chunk=4, prefill_buckets=(8,))
     with pytest.raises(ValueError, match="exceeds max_len"):

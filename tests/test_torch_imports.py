@@ -25,7 +25,9 @@ def test_port_files_exist():
     # below like every other module of the port
     for rel in ("serving/continuous.py", "serving/fleet/pagedkv.py",
                 "serving/fleet/__init__.py", "tracing/core.py",
-                "tracing/export.py", "tracing/__init__.py"):
+                "tracing/export.py", "tracing/__init__.py",
+                "models/speculative.py", "serving/fleet/router.py",
+                "serving/fleet/loadtest.py", "serving/fleet/wire.py"):
         assert ROOT / "kubeflow_tpu_torch" / rel in FILES, rel
 
 

@@ -228,13 +228,20 @@ def test_unported_options_and_cuda_request_raise(served, tmp_path):
                            str(root / "gen")])
     sd = gpt_params_from_flax(
         dict(np.load(root / "gen" / "params.npz")), GPTConfig.tiny())
-    for gen, match in (
-            ({"continuous": True, "fleet_replicas": 2}, "item 5"),
-            ({"continuous": True, "continuous_draft_dir": "d"}, "item 4b")):
-        d = save_predictor(tmp_path / match.replace(" ", "_"), "gpt-lm", sd,
-                           PROMPT, generate=gen, size="tiny")
-        with pytest.raises(NotImplementedError, match=match):
-            TorchModel("m", d, device="cpu").load()
+    # fleet_replicas and continuous_draft_dir are served now
+    # (tests/test_torch_fleet.py, tests/test_torch_spec_engine.py); what
+    # the engine predictor still refuses: beam search, JAX-package weights
+    d = save_predictor(tmp_path / "beams", "gpt-lm", sd, PROMPT,
+                       generate={"continuous": True, "num_beams": 2},
+                       size="tiny")
+    with pytest.raises(ValueError, match="beam search"):
+        TorchModel("m", d, device="cpu").load()
+    d = save_predictor(tmp_path / "jaxw", "gpt-lm", sd, PROMPT,
+                       generate={"continuous": True, "fleet_replicas": 2},
+                       size="tiny")
+    (d / "params.npz").rename(d / "params.msgpack")
+    with pytest.raises(NotImplementedError, match="JAX-package weights"):
+        TorchModel("m", d, device="cpu").load()
     with pytest.raises(NotImplementedError, match="int8"):
         save_predictor(tmp_path / "q", "gpt-lm", sd, PROMPT, quantize=True,
                        size="tiny")
