@@ -47,8 +47,8 @@ Phases, each fatal on failure:
      sampled request repeated with its seed repeats; prints TTFT p50/p99,
      aggregate tokens/s, dispatches, prefill counts, peak memory and
      flash_fwd at the engine's prefill shape
-  8. speculative decoding and the in-process fleet (run last, beside
-     phase 7's figures):
+  8. speculative decoding and the in-process fleet (run after phase 6,
+     beside phase 7's figures):
      (a) speculative_generate on GPT-2 small in f32, the draft the target's
      weights in a second module, 128-token prompt, 64 new tokens, gamma 4:
      every rejection at a near-tie of the target's top two logits (1e-4),
@@ -69,6 +69,24 @@ Phases, each fatal on failure:
      pool under run_loadtest_sync (8 prompts, 4 longer than the prefill
      chunk): all complete, no prompt position computed on the decode
      replica, tokens as (a)
+  9. the pod tier (run last): phase 7's weights written once as a
+     flax-layout params.npz that four worker processes load (python -m
+     kubeflow_tpu_torch.serving.fleet.podworker, one engine each, on the
+     card), spawned together: (a) prefill-0 (chunk 64, 4 chunks a tick),
+     decode-0 and decode-1 behind the router over one home pool, phase 7's
+     16 prompts, 64 new tokens each, under run_loadtest_sync, decode-0
+     SIGKILLed at the first tick at which a row of it has decoded a token:
+     16 of 16 completed, dropped 0, every requeue resumed from its chain,
+     16 handoffs, no prompt position computed on a decode pod, tokens as
+     phase 7's check (a), the victim's process gone and the others alive;
+     (b) the prefill pod maps libflash_fwd and its span file counts 12
+     flash_fwd launches per prefill from position 0 (the launches join the
+     JSON record); (c) prefill-0, decode-1 and the spare decode-2 with every
+     client ticking from its own thread: the client-side tick round trip
+     while both decode pods hold rows beside phase 8 (c)'s and phase 7's
+     dispatch, tokens/s, TTFT, each pod's ready time, the handoff bytes,
+     one chain's host time on the wire and each pod's card memory; every
+     pod is killed at the end
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Every number is printed beside the card's
@@ -108,6 +126,12 @@ SPEC_GAMMA, SPEC_NEW, SPEC_DRAFT_LAYERS = 4, 64, 6
 FLEET_REPLICAS, FLEET_WARM_NEW = 2, 32
 DISAGG_PROMPTS, DISAGG_SHORT, DISAGG_LONG, DISAGG_NEW = 8, 48, 192, 32
 DISAGG_CHUNK, DISAGG_CHUNKS_PER_TICK = 64, 4
+# phase 9: the pod tier (one prefill pod and two decode pods for (a)/(b),
+# traced, and three untraced for (c); each a worker process hosting one
+# engine), POD_NEW new tokens a request; decode-0 is SIGKILLed once it holds
+# POD_KILL_ROWS rows that have decoded POD_KILL_DECODED tokens each on it;
+# a chain's wire-time sample count
+POD_NEW, POD_KILL_ROWS, POD_KILL_DECODED, POD_CODEC_REPEATS = 64, 2, 8, 5
 # bf16 logits: one ulp is 2^-8 of the largest |logit| (the limit of
 # tests/test_torch_train.py: 8 ulps)
 BF16_ULP, BF16_ULPS = 2.0 ** -8, 8
@@ -1099,11 +1123,11 @@ def phase_serve(card: str) -> int:
     return launches
 
 
-def engine_prompts(vocab: int) -> tuple[list, list]:
+def engine_prompts(vocab: int, seed: int = SEED + 7) -> tuple[list, list]:
     """Phase 7's traffic from the seed: (prompts, sampled flags). The first
     ENGINE_SHARED prompts share an ENGINE_PREFIX-token system prefix; the
     last ENGINE_SAMPLED are sampled."""
-    rng = np.random.RandomState(SEED + 7)
+    rng = np.random.RandomState(seed)
     prefix = rng.randint(1, vocab, ENGINE_PREFIX)
     prompts = []
     for i in range(ENGINE_REQUESTS):
@@ -1771,10 +1795,12 @@ def phase_spec_engine(sd, prompts, tmp: str, card: str, plain: dict) -> int:
     return launches
 
 
-def phase_fleet(sd, prompts, tmp: str, card: str, plain: dict) -> int:
+def phase_fleet(sd, prompts, tmp: str, card: str,
+                plain: dict) -> tuple[int, dict]:
     """Phase 8 (c): a two-replica fleet over one pool behind ModelServer,
     a replica killed at the first token, then an admission shed. Returns
-    flash_fwd's launches over the drill."""
+    flash_fwd's launches over the drill and each replica's median decode
+    dispatch (ms) while both decoded."""
     import threading
 
     from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
@@ -1899,7 +1925,7 @@ def phase_fleet(sd, prompts, tmp: str, card: str, plain: dict) -> int:
                                  f"its request id: {shed}")
     finally:
         srv.stop()
-    return launches
+    return launches, {n: float(np.median(v)) for n, v in both.items()}
 
 
 def phase_disagg(module, dense, card: str) -> int:
@@ -1967,10 +1993,11 @@ def phase_disagg(module, dense, card: str) -> int:
     return launches
 
 
-def phase_spec_fleet(peaks, card: str, plain: dict) -> int:
+def phase_spec_fleet(peaks, card: str, plain: dict) -> tuple[int, dict]:
     """Phase 8: speculative decoding, solo (a) and in the engine (b), the
     two-replica fleet with its kill drill and shed (c), and the
-    disaggregated pair (d). Returns flash_fwd's launches over their runs."""
+    disaggregated pair (d). Returns flash_fwd's launches over their runs
+    and (c)'s decode dispatch medians (ms) with both replicas decoding."""
     import torch
 
     from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
@@ -1992,7 +2019,9 @@ def phase_spec_fleet(peaks, card: str, plain: dict) -> int:
         launches += phase_spec_engine(sd, prompts, tmp, card, plain)
         gc.collect()
         torch.cuda.empty_cache()
-        launches += phase_fleet(sd, prompts, tmp, card, plain)
+        fleet_launches, fleet_ticks = phase_fleet(sd, prompts, tmp, card,
+                                                  plain)
+        launches += fleet_launches
     gc.collect()
     torch.cuda.empty_cache()
     module = GPTLM(cfg, device="cuda")
@@ -2023,6 +2052,456 @@ def phase_spec_fleet(peaks, card: str, plain: dict) -> int:
     print(f"phase 8 took {time.perf_counter() - t0:.1f}s [{card}]",
           flush=True)
     del module, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, fleet_ticks
+
+
+# ------------------------------------------------------------- phase 9
+
+
+def pod_trace(trace_dir: str, client) -> list[dict]:
+    """A pod's spans as its worker last flushed them (every tick): the
+    complete events of `<trace_dir>/trace-<name>-<pid>.json`."""
+    from pathlib import Path
+
+    path = Path(trace_dir) / f"trace-{client.name}-{client.worker_pid}.json"
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X"]
+
+
+def pod_prefills(spans: list[dict]) -> tuple[int, int]:
+    """(prefill chunks that started at position 0, prompt positions
+    computed) in a pod's spans."""
+    chunks = [e["args"] for e in spans if e["name"] == "engine.prefill_chunk"]
+    from_zero = sum(1 for a in chunks if a.get("tokens_reused", 0) == 0
+                    and a["pos"] == a["tokens_computed"])
+    return from_zero, sum(a["tokens_computed"] for a in chunks)
+
+
+def pod_launches(spans: list[dict]) -> dict:
+    """The kernels' launches inside the pod's process since it began
+    serving: its newest pod.kernel_launches event."""
+    events = [e["args"] for e in spans if e["name"] == "pod.kernel_launches"]
+    if not events:
+        return {}
+    return {k: v for k, v in events[-1].items()
+            if k not in ("trace_id", "span_id", "parent_id")}
+
+
+def timed_ticks(client, samples: list) -> None:
+    """Record each client-side tick round trip of `client` as (start,
+    seconds, rows the client held) in `samples`."""
+    tick = client.tick
+
+    def timed():
+        rows = len(client._rows)
+        t0 = time.perf_counter()
+        busy = tick()
+        samples.append((t0, time.perf_counter() - t0, rows))
+        return busy
+
+    client.tick = timed
+
+
+def clock_calls(targets, clock: dict):
+    """Wrap each (owner, attribute, name) callable so that clock[key]
+    sums (calls, seconds) of its calls from any thread; the key is the
+    name, with "@<thread>" added for calls made on a pod client's own
+    ticking thread. Returns the function that unwraps them."""
+    import threading
+
+    mu = threading.Lock()
+    saved = []
+    for owner, attr, name in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, vars(owner).get(attr)))
+
+        def call(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                thread = threading.current_thread().name
+                key = _name + (f"@{thread[len('pod-client-'):]}"
+                               if thread.startswith("pod-client-") else "")
+                with mu:
+                    n, sec = clock.get(key, (0, 0.0))
+                    clock[key] = (n + 1, round(sec + dt, 6))
+
+        setattr(owner, attr, call)
+
+    def restore():
+        for owner, attr, old in reversed(saved):
+            if old is None:     # a method of the instance's class
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, old)
+    return restore
+
+
+def ready_seconds(state_dir: str, name: str) -> float:
+    """A pod's `ready in` line from its stderr log."""
+    import re
+    from pathlib import Path
+
+    text = Path(state_dir, f"{name}.stderr.log").read_text()
+    found = re.search(r"ready in ([0-9.]+)s", text)
+    if found is None:
+        raise AssertionError(f"pod {name} never reported ready: {text}")
+    return float(found.group(1))
+
+
+def chain_wire_ms(cfg, prompt) -> tuple[float, float, int]:
+    """Host time of one prefill handoff's chain on the wire, in the
+    parent: a (prompt + 1)-position bf16 chain of GPT-2 small serialized
+    (serialize_chain + json.dumps) and deserialized (json.loads +
+    deserialize_chain into a fresh pool). Returns (median serialize ms,
+    median deserialize ms, JSON bytes)."""
+    import torch
+
+    from kubeflow_tpu_torch.models.gpt import cache_paths
+    from kubeflow_tpu_torch.serving.fleet import PagedKVPool
+    from kubeflow_tpu_torch.serving.fleet.wire import (
+        deserialize_chain,
+        serialize_chain,
+    )
+
+    n = prompt.size + 1
+    gen = torch.Generator().manual_seed(SEED + 42)
+    heads, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    kv = {p: torch.randn((n, heads, hd), generator=gen).to(torch.bfloat16)
+          for p in cache_paths(cfg.num_layers)}
+    ids = np.concatenate([prompt, prompt[:1]]).astype(np.int32)
+    pool = PagedKVPool(ENGINE_BLOCK, 64)
+    refs = pool.insert(ids, kv)
+    enc, dec = [], []
+    for _ in range(POD_CODEC_REPEATS):
+        t0 = time.perf_counter()
+        body = json.dumps(serialize_chain(pool, refs))
+        t1 = time.perf_counter()
+        chain = deserialize_chain(PagedKVPool(ENGINE_BLOCK, 64),
+                                  json.loads(body))
+        dec.append(time.perf_counter() - t1)
+        enc.append(t1 - t0)
+        if chain.frozen or chain.length != n:
+            raise AssertionError("the chain did not cross whole")
+        chain.release()
+    return np.median(enc) * 1e3, np.median(dec) * 1e3, len(body)
+
+
+def card_compute_apps() -> list:
+    """The card's compute processes as nvidia-smi lists them ("pid, used
+    memory"; its pids are the host's, which a container may not share)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return [line.strip() for line in out.stdout.splitlines()
+            if line.strip()]
+
+
+def card_used_gib() -> float:
+    """Memory in use on the card by every process, GiB."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2**30
+
+
+def phase_pods(card: str, plain: dict, fleet_ticks: dict) -> int:
+    """Phase 9: the pod tier on the card — GPT-2 small served by worker
+    processes, one engine each, behind the router. (a) a prefill pod and
+    two decode pods under run_loadtest_sync, one decode pod SIGKILLed
+    mid-decode; (b) the flash kernel ran inside the prefill pod and no
+    prompt position on a decode pod (these three pods flush their spans
+    every tick); (c) on three other pods, which record no spans, with
+    every client ticking from its own thread: the tick round trips,
+    tokens/s, TTFT, ready times, handoff bytes and the chain's host time
+    on the wire. Returns flash_fwd's launches in the prefill pod over
+    (a)."""
+    import dataclasses
+    import os
+    import signal
+
+    import torch
+
+    from kubeflow_tpu_torch.convert import flax_params_from_gpt
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
+    from kubeflow_tpu_torch.serving.fleet import (
+        FleetRouter,
+        PagedKVPool,
+        pod_metrics_snapshot,
+        run_loadtest_sync,
+        spawn_pod,
+        wire_pod_deaths,
+    )
+    from kubeflow_tpu_torch.tracing import ENV_TRACE_DIR
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.small(attention="flash", dtype="bfloat16")
+    n_layers = cfg.num_layers
+    # phase 7's weights, once, in the flax layout every pod loads
+    sd = GPTLM(cfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED + 5)).state_dict()
+    prompts, _ = engine_prompts(cfg.vocab_size)
+    c_prompts, _ = engine_prompts(cfg.vocab_size, seed=SEED + 43)
+    clients = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/params.npz", **flax_params_from_gpt(sd, cfg))
+        state, trace_dir = f"{tmp}/pods", f"{tmp}/trace"
+        spec = {"model": dataclasses.asdict(cfg), "device": "cuda",
+                "params": f"{tmp}/params.npz", "max_rows": ENGINE_ROWS,
+                "default_max_new_tokens": POD_NEW, "eos_token_id": None,
+                "seed": SEED, "prefill_chunk": 0,
+                "pool": {"block_size": ENGINE_BLOCK,
+                         "capacity_blocks": 1024}}
+        prefill = {**spec, "prefill_chunk": DISAGG_CHUNK,
+                   "max_chunks_per_tick": DISAGG_CHUNKS_PER_TICK}
+        # name -> (spec, home pool, extra environment): (a)/(b)'s pods
+        # flush spans every tick, (c)'s record none
+        home_a = PagedKVPool(ENGINE_BLOCK, 1024)
+        home_c = PagedKVPool(ENGINE_BLOCK, 1024)
+        traced = {ENV_TRACE_DIR: trace_dir}
+        pods = {"prefill-0": (prefill, home_a, traced),
+                "decode-0": (spec, home_a, traced),
+                "decode-1": (spec, home_a, traced),
+                "prefill-1": (prefill, home_c, None),
+                "decode-2": (spec, home_c, None),
+                "decode-3": (spec, home_c, None)}
+        used0 = card_used_gib()
+        try:
+            t0 = time.perf_counter()
+            for name, (sp, home, env) in pods.items():  # started together
+                clients[name] = spawn_pod(
+                    name, sp, state, home_pool=home, connect=False,
+                    env_extra=env)
+            for c in clients.values():
+                c.connect()
+            up = time.perf_counter() - t0
+            ready = {n: ready_seconds(state, n) for n in clients}
+            used_up = card_used_gib() - used0
+            pre, victim, survivor = (
+                clients[n] for n in ("prefill-0", "decode-0", "decode-1"))
+            print(f"phase 9: the pod tier, GPT-2 small bf16 compute, f32 "
+                  f"params from one params.npz, {ENGINE_ROWS} rows and "
+                  f"paged KV block {ENGINE_BLOCK} a pod; {len(clients)} "
+                  f"worker processes up in {up:.2f}s (each pod's ready "
+                  f"time: {ready}) [{card}]", flush=True)
+            # ------------------------------------------------- (a)
+            router = FleetRouter([("prefill-0", pre, "prefill"),
+                                  ("decode-0", victim, "decode"),
+                                  ("decode-1", survivor, "decode")])
+            wire_pod_deaths(router)
+            handles = []
+            submit = router.submit
+
+            def keep(*a, **kw):
+                handles.append(submit(*a, **kw))
+                return handles[-1]
+
+            router.submit = keep
+            killed = {}
+
+            def on_tick(tick, _router):
+                # rows of decode-0 have decoded POD_KILL_DECODED tokens
+                # each on it (the first came with the prefill handoff)
+                deep = [h for h in list(victim._rows)
+                        if len(h.tokens) > POD_KILL_DECODED]
+                if not killed and len(deep) >= POD_KILL_ROWS:
+                    killed["tick"] = tick
+                    # what the client had streamed from decode-0
+                    killed["streamed"] = [
+                        (f, list(f.tokens)) for f in handles
+                        if f.replica == "decode-0" and not f.done.is_set()]
+                    os.kill(victim.worker_pid, signal.SIGKILL)
+
+            wire0 = pod_metrics_snapshot()
+            t_run = time.perf_counter()
+            report = run_loadtest_sync(router, prompts, seed=SEED + 41,
+                                       mean_gap_ticks=1.0,
+                                       new_tokens=POD_NEW, on_tick=on_tick)
+            wall = time.perf_counter() - t_run
+            s = report.summary()
+            m = dict(router.metrics)
+            wire1 = pod_metrics_snapshot()
+            spans = {n: pod_trace(trace_dir, clients[n])
+                     for n in ("prefill-0", "decode-0", "decode-1")}
+            from_zero, computed = pod_prefills(spans["prefill-0"])
+            launches = pod_launches(spans["prefill-0"]).get("flash_fwd", 0)
+            decode_computed = {n: pod_prefills(spans[n])[1]
+                               for n in ("decode-0", "decode-1")}
+            print(f"  (a) {len(prompts)} requests x {ENGINE_PROMPT} tokens, "
+                  f"{POD_NEW} new each, run_loadtest_sync over 1 prefill "
+                  f"pod (chunk {DISAGG_CHUNK}, {DISAGG_CHUNKS_PER_TICK} a "
+                  f"tick) and 2 decode pods; decode-0 SIGKILLed at tick "
+                  f"{killed.get('tick')}, holding "
+                  f"{[len(t) for _, t in killed.get('streamed', [])]} "
+                  f"streamed tokens in its rows: {wall:.3f}s, {s}; router "
+                  f"{m}; handoff bytes {wire1['handoff_bytes_total'] - wire0['handoff_bytes_total']}"
+                  f", wire retries "
+                  f"{wire1['wire_retries_total'] - wire0['wire_retries_total']}"
+                  f" [{card}]", flush=True)
+            if not killed:
+                raise AssertionError(
+                    f"decode-0 never held {POD_KILL_ROWS} rows with "
+                    f"{POD_KILL_DECODED} decoded tokens")
+            if s["dropped"] or s["completed"] != len(prompts):
+                raise AssertionError(f"the pod drill dropped requests: {s}")
+            if s["requeued"] < POD_KILL_ROWS \
+                    or s["resumed"] != s["requeued"] \
+                    or s["resumed_tokens"] < s["resumed"]:
+                raise AssertionError(
+                    f"requeues not all resumed from their chains: {s}")
+            # each killed row's decoded positions were decoded again on
+            # decode-1 from the home chain: what the client had streamed
+            # from decode-0 is a prefix of the answer
+            deep = [f for f, t in killed["streamed"]
+                    if len(t) > POD_KILL_DECODED]
+            if len(deep) < POD_KILL_ROWS or any(
+                    list(f.tokens)[:len(t)] != t
+                    for f, t in killed["streamed"]):
+                raise AssertionError(
+                    "a killed row's answer disagrees with what decode-0 "
+                    "had streamed")
+            if m["prefill_handoffs_total"] != len(prompts) \
+                    or m["replica_kills_total"] < 1:
+                raise AssertionError(f"handoffs or kills: {m}")
+            if any(decode_computed.values()) \
+                    or survivor.prefill_tokens_total:
+                raise AssertionError(
+                    f"prompt positions computed on a decode pod: "
+                    f"{decode_computed}, decode-1 counter "
+                    f"{survivor.prefill_tokens_total}")
+            victim.proc.wait(timeout=30)
+            others = [c for c in clients.values() if c is not victim]
+            if victim.proc.returncode != -signal.SIGKILL or any(
+                    c.proc.poll() is not None for c in others):
+                raise AssertionError(
+                    f"process states: victim rc {victim.proc.returncode},"
+                    f" survivors {[c.proc.poll() for c in others]}")
+            dense = GPTLM(GPTConfig.small(attention="dense",
+                                          dtype="bfloat16"), device="cuda")
+            dense.load_state_dict(sd)
+            tokens = [np.asarray(next(h.tokens for h in handles
+                                      if np.array_equal(h.prompt, p)))
+                      for p in prompts]
+            if any(t.shape != (POD_NEW,) for t in tokens):
+                raise AssertionError("a pod answer has the wrong length")
+            check_greedy(dense, prompts, tokens, "(a) pods after the kill",
+                         card)
+            # ------------------------------------------------- (b)
+            with open(f"/proc/{pre.worker_pid}/maps") as fh:
+                maps = fh.read()
+            mapped = "libflash_fwd-" in maps
+            print(f"  (b) prefill-0 (pid {pre.worker_pid}) maps "
+                  f"libflash_fwd: {mapped}; its spans: {from_zero} prefills "
+                  f"from position 0, {computed} prompt positions computed, "
+                  f"kernel launches {pod_launches(spans['prefill-0'])}; "
+                  f"prompt positions computed on decode-0 / decode-1: "
+                  f"{decode_computed} [{card}]", flush=True)
+            if not mapped:
+                raise AssertionError("the prefill pod never loaded flash_fwd")
+            if from_zero < 1 or launches != n_layers * from_zero:
+                raise AssertionError(
+                    f"flash_fwd launched {launches} times in the prefill pod"
+                    f" over {from_zero} prefills from position 0; expected "
+                    f"{n_layers} each")
+            del dense
+            gc.collect()
+            torch.cuda.empty_cache()
+            # ------------------------------------------------- (c)
+            router = FleetRouter([(n, clients[n], role) for n, role in (
+                ("prefill-1", "prefill"), ("decode-2", "decode"),
+                ("decode-3", "decode"))])
+            wire_pod_deaths(router)
+            samples = {n: [] for n in ("prefill-1", "decode-2", "decode-3")}
+            for n, smp in samples.items():
+                timed_ticks(clients[n], smp)
+            wire0 = pod_metrics_snapshot()
+            # the parent's share of the handoffs: the chain codec (a done
+            # event's chain decoded, a decode leg's chain encoded) and the
+            # decode-leg submits, whose reply waits for the decode pod to
+            # decode the chain
+            from kubeflow_tpu_torch.serving.fleet import podclient, wire
+
+            clock = {}
+            unwrap = clock_calls(
+                [(podclient, "serialize_chain", "serialize"),
+                 (wire, "deserialize_chain", "deserialize"),
+                 (clients["decode-2"], "submit", "decode-leg submit"),
+                 (clients["decode-3"], "submit", "decode-leg submit")],
+                clock)
+            router.start()
+            try:
+                t_run = time.perf_counter()
+                reqs = [router.submit(p, max_new_tokens=POD_NEW)
+                        for p in c_prompts]
+                for r in reqs:
+                    r.result(timeout=600)
+                wall = time.perf_counter() - t_run
+            finally:
+                router.stop()
+                unwrap()
+            wire1 = pod_metrics_snapshot()
+            used_c = card_used_gib() - used0
+            apps = card_compute_apps()
+            busy = {n: [(t, dt) for t, dt, rows in smp if rows]
+                    for n, smp in samples.items()}
+            pf_busy = np.array([dt for _, dt in busy.pop("prefill-1")]) * 1e3
+            if any(not b for b in busy.values()):
+                raise AssertionError(f"a decode pod held no rows: "
+                                     f"{ {n: len(b) for n, b in busy.items()} }")
+            lo = max(b[0][0] for b in busy.values())
+            hi = min(b[-1][0] for b in busy.values())
+            both = {n: [dt * 1e3 for t, dt in b if lo <= t <= hi]
+                    for n, b in busy.items()}
+            ttft = np.array([r.ttft_s for r in reqs]) * 1e3
+            enc_ms, dec_ms, nbytes = chain_wire_ms(cfg, c_prompts[0])
+            print(f"  (c) {len(c_prompts)} requests x {ENGINE_PROMPT} "
+                  f"tokens, {POD_NEW} new each, on 3 pods that record no "
+                  f"spans, every pod client ticking from its own thread: "
+                  f"{wall:.3f}s, "
+                  f"{len(c_prompts) * POD_NEW / wall:.1f} tokens/s "
+                  f"aggregate; TTFT p50 {np.percentile(ttft, 50):.2f} ms, "
+                  f"p99 {np.percentile(ttft, 99):.2f} ms; prefill-1's "
+                  f"client-side tick round trips while it held rows: "
+                  f"{pf_busy.size}, median {np.median(pf_busy):.2f} ms, "
+                  f"max {pf_busy.max():.2f} ms, sum {pf_busy.sum():.2f} ms;"
+                  f" the parent's handoff calls over (c) (calls, s; "
+                  f"@thread: on that pod client's thread): {clock}; "
+                  f"decode pods' client-side tick "
+                  f"round trip median while both decode pods hold rows: "
+                  + ", ".join(f"{n} {np.median(v):.2f} ms over {len(v)}"
+                              for n, v in both.items())
+                  + f" (phase 8 (c), two engine threads in one process: "
+                  + ", ".join(f"{n} {v:.2f} ms"
+                              for n, v in fleet_ticks.items())
+                  + f"; phase 7, one engine thread alone "
+                  f"{plain['tick_ms_alone']:.2f} ms); handoff bytes "
+                  f"{wire1['handoff_bytes_total'] - wire0['handoff_bytes_total']}"
+                  f"; one {c_prompts[0].size + 1}-position bf16 chain on "
+                  f"the wire: {nbytes} JSON bytes, serialize "
+                  f"{enc_ms:.2f} ms, deserialize {dec_ms:.2f} ms (host, "
+                  f"median of {POD_CODEC_REPEATS}); pods' ready times "
+                  f"{ready} s; card memory the pods hold beyond the "
+                  f"parent's: {used_up:.2f} GiB for {len(clients)} pods "
+                  f"once up, {used_c:.2f} GiB for the {len(others)} left "
+                  f"after (c) ({used_c / len(others):.2f} a pod); "
+                  f"nvidia-smi compute apps "
+                  f"{apps} [{card}]", flush=True)
+            if any(r.error is not None for r in reqs):
+                raise AssertionError("a request of (c) failed")
+        finally:
+            for c in clients.values():
+                c.kill(timeout_s=5.0)
+                c._kill_process()
+    if any(c.proc.poll() is None for c in clients.values()):
+        raise AssertionError("a pod outlived phase 9")
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f}s [{card}]",
+          flush=True)
+    del sd
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2064,13 +2543,16 @@ def main() -> int:
           flush=True)
     timings.update(phase_backward(peaks, card, routes))
     launches, step_ms = phase_train(card)
-    # phase 8 comes last: run between phases 7 and 5, it was followed by
-    # torch.profiler traces that lost a kernel's launches at the training
-    # shape (see PERF.md, Open questions)
-    spec_launches = phase_spec_fleet(peaks, card, plain)
+    # phases 8 and 9 come after phase 6: run between phases 7 and 5, phase
+    # 8 was followed by torch.profiler traces that lost a kernel's launches
+    # at the training shape (see PERF.md, Open questions)
+    spec_launches, fleet_ticks = phase_spec_fleet(peaks, card, plain)
     print(f"  speculative and fleet paths: flash_fwd launches "
           f"{spec_launches} [{card}]", flush=True)
-    engine_launches += spec_launches
+    pod_launches = phase_pods(card, plain, fleet_ticks)
+    print(f"  pod path: flash_fwd launches {pod_launches} (in the prefill "
+          f"pod's process) [{card}]", flush=True)
+    engine_launches += spec_launches + pod_launches
     per_step = launches["flash_bwd_dq"] // TRAIN_STEPS  # one per layer
     attn_ms = per_step * sum(t["ms"] for t in timings.values())
     # SDPA's backward stands beside dq and dkv together: count it once
@@ -2096,8 +2578,8 @@ def main() -> int:
     # flash_fwd's launches: the training path's and the engine paths'
     launches["flash_fwd"] += engine_launches
     print(f"flash_fwd launches: training "
-          f"{launches['flash_fwd'] - engine_launches}, engine, speculative "
-          f"and fleet paths (phases 7-8) {engine_launches} [{card}]",
+          f"{launches['flash_fwd'] - engine_launches}, engine, speculative, "
+          f"fleet and pod paths (phases 7-9) {engine_launches} [{card}]",
           flush=True)
     record = {"kernels": [{
         "name": name,

@@ -5,7 +5,8 @@ A port worker is judged by the platform exactly as a JAX worker is: it
 beats the heartbeat file the pod env names (``KFTPU_HEARTBEAT_FILE``), and
 its checkpoint steps carry the same integrity manifest
 (``kftpu-manifest.json``), whose verification outcomes count into the
-``ckpt_verify_*`` registry.
+``ckpt_verify_*`` registry. ``read_heartbeat`` is the reader side a pod
+client's heartbeat age comes from.
 """
 
 from __future__ import annotations
@@ -15,14 +16,42 @@ import os
 import random
 import threading
 import time
+from dataclasses import dataclass
 
-#: env contract of the pod (``kubeflow_tpu/utils/envvars.py``)
-ENV_HEARTBEAT_FILE = "KFTPU_HEARTBEAT_FILE"
-ENV_HEARTBEAT_DROP = "KFTPU_HB_DROP"
+from kubeflow_tpu_torch.utils.envvars import (
+    ENV_HEARTBEAT_DROP,
+    ENV_HEARTBEAT_FILE,
+)
 
 #: filename of the per-step integrity manifest train/checkpoint.py writes
 #: inside each committed checkpoint step directory
 CKPT_MANIFEST_NAME = "kftpu-manifest.json"
+
+
+@dataclass(frozen=True)
+class Heartbeat:
+    """One liveness sample: the newest progress a worker claims."""
+
+    step: int
+    phase: str
+    ts: float
+    pid: int
+
+
+def read_heartbeat(path: str) -> Heartbeat | None:
+    """Parse a heartbeat file; None when missing/partial (a torn write is
+    indistinguishable from no write — the atomic-rename writer makes torn
+    reads impossible in practice, but a corrupt file must not crash the
+    reader)."""
+    try:
+        with open(path, "r", encoding="utf-8") as fh:
+            raw = json.load(fh)
+        return Heartbeat(
+            step=int(raw["step"]), phase=str(raw.get("phase", "")),
+            ts=float(raw["ts"]), pid=int(raw.get("pid", 0)),
+        )
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
 
 
 class HeartbeatWriter:

@@ -2,10 +2,13 @@
 which the continuous engine (serving/continuous.py) uses for prefix reuse
 and per-row block chains; the in-process router over N engines with SLO
 admission, replica-kill requeue and the disaggregated prefill/decode
-split (router.py); the seeded load-test harness (loadtest.py); and the
-pod wire's failure ladder (wire.py). The pods (cross-process replicas),
-the rest of the wire and the scaler of ``kubeflow_tpu/serving/fleet``
-are ROADMAP Queue A item 5.
+split (router.py); the seeded load-test harness (loadtest.py); the closed
+autoscaling loop (scaler.py: FleetScaler over the router's demand
+signal); and cross-process pod-backed replicas (podworker.py /
+podclient.py over the wire.py protocol: each replica a real subprocess
+hosting one engine on the card, killed with real signals, with the
+paged-KV handoff crossing the process boundary). Counterpart of
+``kubeflow_tpu/serving/fleet``.
 """
 
 from kubeflow_tpu_torch.serving.fleet.loadtest import (
@@ -28,6 +31,19 @@ from kubeflow_tpu_torch.serving.fleet.router import (
     FleetRouter,
     Replica,
 )
+from kubeflow_tpu_torch.serving.fleet.podclient import (
+    PodClient,
+    PodHandle,
+    attach_router_death,
+    pod_heartbeat_age_max_s,
+    pod_metrics_snapshot,
+    spawn_pod,
+    wire_pod_deaths,
+)
+from kubeflow_tpu_torch.serving.fleet.scaler import (
+    FleetScaler,
+    ScalerConfig,
+)
 from kubeflow_tpu_torch.serving.fleet.wire import (
     PodCallError,
     PodDead,
@@ -39,19 +55,28 @@ __all__ = [
     "FleetOverloaded",
     "FleetRequest",
     "FleetRouter",
+    "FleetScaler",
     "LoadReport",
     "PagedKVPool",
     "PodCallError",
+    "PodClient",
     "PodDead",
     "PodDeadlineExpired",
+    "PodHandle",
     "PodWireError",
     "PrefixMatch",
     "Replica",
+    "ScalerConfig",
     "SequenceChain",
+    "attach_router_death",
     "extract_prompt_kv",
     "make_prompts",
     "make_row_template",
+    "pod_heartbeat_age_max_s",
+    "pod_metrics_snapshot",
     "run_loadtest",
     "run_loadtest_sync",
     "seed_row_cache",
+    "spawn_pod",
+    "wire_pod_deaths",
 ]

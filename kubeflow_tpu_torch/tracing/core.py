@@ -1,8 +1,8 @@
 """Tracing core — spans, contextvar propagation, and the flight recorder.
 
 The port's own copy of ``kubeflow_tpu/tracing/core.py`` (stdlib only), with
-``threading.Lock`` in place of the lock-order checker's named locks and the
-two environment-variable names kept here as constants.
+``threading.Lock`` in place of the lock-order checker's named locks; the
+two environment-variable names come from ``utils/envvars.py``.
 
 Dependency-free (stdlib only) distributed tracing for the platform:
 
@@ -37,10 +37,10 @@ import time
 import uuid
 from collections import deque
 
-#: directory a worker flushes its spans to at exit
-ENV_TRACE_DIR = "KFTPU_TRACE_DIR"
-#: the parent span context a worker's spans join
-ENV_TRACEPARENT = "KFTPU_TRACEPARENT"
+from kubeflow_tpu_torch.utils.envvars import (  # noqa: F401 (re-export)
+    ENV_TRACE_DIR,
+    ENV_TRACEPARENT,
+)
 #: object annotation carrying the SpanContext of the write that decided the
 #: object's fate (e.g. the pod.exit span) — readable by any controller that
 #: later acts on the object, independent of watch-delivery races

@@ -45,10 +45,11 @@ from kubeflow_tpu_torch.train.data import (
     to_device,
 )
 
-#: pod env contract (kubeflow_tpu/utils/envvars.py)
-ENV_TRACE_DIR = "KFTPU_TRACE_DIR"
-ENV_PROFILE_DIR = "KFTPU_PROFILE_DIR"
-ENV_EVENT_DIR = "KFTPU_EVENT_DIR"
+from kubeflow_tpu_torch.utils.envvars import (
+    ENV_EVENT_DIR,
+    ENV_PROFILE_DIR,
+    ENV_TRACE_DIR,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -27,7 +27,10 @@ def test_port_files_exist():
                 "serving/fleet/__init__.py", "tracing/core.py",
                 "tracing/export.py", "tracing/__init__.py",
                 "models/speculative.py", "serving/fleet/router.py",
-                "serving/fleet/loadtest.py", "serving/fleet/wire.py"):
+                "serving/fleet/loadtest.py", "serving/fleet/wire.py",
+                "serving/fleet/podworker.py", "serving/fleet/podclient.py",
+                "serving/fleet/scaler.py", "utils/envvars.py",
+                "utils/retry.py", "health.py"):
         assert ROOT / "kubeflow_tpu_torch" / rel in FILES, rel
 
 
