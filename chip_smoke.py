@@ -34,10 +34,23 @@ Phases, each fatal on failure:
   6. the training path: GPT-2 small (full width and depth, seeded random
      init, f32 parameters, bf16 compute) trained by the port's Trainer.fit
      at batch 4 x 2048 tokens, launches checked per step, loss finite and
-     falling; then one f32 step's loss and grads through the kernels
-     against the plain attention path (the f32 FMA backward kernels; the
-     bf16 tensor-core kernels that training runs are held by phase 5), and
-     a checkpoint round trip
+     falling; a checkpoint round trip and a profiled step; then the same fit
+     graphed from the same weights (fused_steps=TRAIN_FUSED: three chunks,
+     each one CUDA graph replay, and a two-step tail): launches checked per
+     dispatch (a replay's from its capture, the warm-up step's counted),
+     every logged loss within GRAPH_LOSS_RTOL of the eager fit's at its step,
+     the final parameters' largest difference, step time, tokens/s, peak
+     memory and a profiled chunk's idle share beside the eager fit's; the
+     checkpoint crossing (graphed -> eager -> graphed: the next two losses
+     equal on both sides, then a chunk captured over the restored state);
+     one graphed chunk under profile_dir (each flash kernel's launches in
+     the written trace against the counters: what the trace lost); one f32
+     step's loss and grads through the kernels against the plain attention
+     path (the f32 FMA backward kernels; the bf16 tensor-core kernels that
+     training runs are held by phase 5); then the restart-warm check: two
+     processes in turn run a short graphed fit over one fresh
+     compile_cache_dir, the first building every kernel library into it,
+     the second running nvcc zero times, both logging the same losses
   7. the engine (run after phase 4): GPT-2 small in bf16 compute with f32
      parameters served through the continuous-batching engine over a paged
      KV pool (8 rows, block 16) behind ModelServer; 16 requests of 128
@@ -103,7 +116,9 @@ Phases, each fatal on failure:
      classifier, flash, dropout 0, bf16, 16 x 128 with padded rows, 10
      steps: each step launches each flash kernel 12 times, steps/s; one f32
      step's loss and grads through the kernels against the plain attention
-     path (as phase 6); served as bert-classifier (base), logits within 8
+     path (as phase 6); the same fit graphed (fused_steps=FAM_BERT_FUSED,
+     checked and compared as phase 6's); served as bert-classifier (base),
+     logits within 8
      bf16 ulps of the plain path; BertForMaskedLM for 3 steps, masked loss
      finite; (c) ViT-B/16 (197 tokens), flash, bf16, batch 32, 5 steps,
      served, logits against the plain path; (d) MnistMLP and MnistCNN on
@@ -121,6 +136,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -156,8 +172,16 @@ POD_NEW, POD_KILL_ROWS, POD_KILL_DECODED, POD_CODEC_REPEATS = 64, 2, 8, 5
 # bf16 logits: one ulp is 2^-8 of the largest |logit| (the limit of
 # tests/test_torch_train.py: 8 ulps)
 BF16_ULP, BF16_ULPS = 2.0 ** -8, 8
-# the training path: bench.py's gpt2s_flash_2k shape
+# the training path: bench.py's gpt2s_flash_2k shape; the graphed fit's
+# chunk (TRAIN_STEPS = 3 chunks and a two-step tail), BERT's (phase 10), and
+# how far a graphed fit's logged loss may sit from the eager fit's at the
+# same step (the graph replays the eager steps' arithmetic, optimizer
+# update included, so it reads 0)
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 20, 2
+TRAIN_FUSED, FAM_BERT_FUSED, GRAPH_LOSS_RTOL = 6, 4, 2e-3
+# the restart-warm check: two incarnations of a short graphed GPT-2 small
+# fit (batch x length, steps, chunk) over one fresh compile_cache_dir
+RESTART_BATCH, RESTART_LEN, RESTART_STEPS, RESTART_FUSED = 2, 256, 3, 2
 # the encoder families' attention (phase 10's shapes), non-causal, for
 # phases 3 and 5: (tag, B, L, padded) — BERT-base at bench.py's 16 x 128 and
 # at 16 x 512 under the padding bias of synthetic_text_dataset's row lengths
@@ -173,6 +197,9 @@ FAM_RESNET_BATCH, FAM_RESNET_STEPS, FAM_RESNET_IMAGES = 128, 10, 256
 FAM_BERT_BATCH, FAM_BERT_LEN, FAM_BERT_STEPS, FAM_MLM_STEPS = 16, 128, 10, 3
 FAM_VIT_BATCH, FAM_VIT_STEPS = 32, 5
 FAM_MNIST_TRAIN, FAM_MNIST_TEST = 2048, 512
+# idle host time (s) on either side of a profiled window, doubled on each
+# retry of a trace that lost activities (device_events)
+PROFILE_PAD = 0.05
 # phase 5's second limit, per block of one batch row, head and 64 positions:
 # ||got - ref|| / ||ref||, set from the readings of sound kernels on the card
 TILE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
@@ -338,12 +365,17 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, iters: int) -> tuple[list, float]:
+def device_events(fn, iters: int, pad: float = PROFILE_PAD
+                  ) -> tuple[list, float]:
     """The device activities (kernels, copies, fills) of iters calls of
     fn(), after a warmup, from a torch.profiler trace: ([(name, start_us,
     duration_us)], host seconds of the traced calls to their last
     synchronize). CUPTI records every launch on the card, the ctypes
-    wrappers' included. Raises if the trace holds none."""
+    wrappers' included. The trace's window holds `pad` seconds of idle host
+    time before and after the calls: the profiler drops a device activity
+    whose timestamp falls outside its window, and on the card's machine a
+    short window has lost every activity, traces after traces (PERF.md
+    §7). Raises if the trace holds none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -351,11 +383,13 @@ def device_events(fn, iters: int) -> tuple[list, float]:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(pad)
     events = [(e.name, e.time_range.start, e.time_range.elapsed_us())
               for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -364,19 +398,20 @@ def device_events(fn, iters: int) -> tuple[list, float]:
     return events, wall
 
 
-def device_ms(fn, iters: int, attempts: int = 5) -> float:
+def device_ms(fn, iters: int, attempts: int = 6) -> float:
     """Device time of one fn() call: for each activity name in a trace of
     iters calls, its mean duration times the times a call runs it
     (round(count / iters)), summed. A trace can lose an activity at its
     edge (19 of 20 on the card), which this rounding absorbs. A trace
     that holds nothing, or holds some activity in fewer than half of the
     calls (the card has lost most of one kernel's launches from a 10-call
-    trace, which reads as 0), is retried, up to `attempts` times; then the
-    largest reading stands, and none above 0 raises."""
+    trace, which reads as 0), is retried with twice the window's padding,
+    up to `attempts` times; then the largest reading stands, and none above
+    0 raises."""
     best = 0.0
-    for _ in range(attempts):
+    for attempt in range(attempts):
         try:
-            events, _ = device_events(fn, iters)
+            events, _ = device_events(fn, iters, PROFILE_PAD * 2 ** attempt)
         except AssertionError:
             continue
         by_name: dict = {}
@@ -823,25 +858,70 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
             for name in ("flash_bwd_dd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
-def phase_train(card: str) -> tuple[dict, float]:
-    """GPT-2 small trained by the port's Trainer.fit on the card. Returns
-    each kernel's launches over the fit and the median step time (ms)."""
-    import contextlib
-    import io
-
+def gpt_trainer(cfg, seed: int, **kw):
+    """GPT-2 small at cfg with seeded weights, and the Trainer of phase 6's
+    config (kw overrides it)."""
     import torch
 
-    from kubeflow_tpu_torch.kernels import KERNELS
     from kubeflow_tpu_torch.models.gpt import (
-        GPTConfig,
         GPTLM,
         causal_lm_eval_metrics,
         causal_lm_loss,
     )
-    from kubeflow_tpu_torch.train import metrics
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    model = GPTLM(cfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(seed))
+    config = {"batch_size": TRAIN_BATCH, "steps": TRAIN_STEPS,
+              "learning_rate": 3e-4, "warmup_steps": TRAIN_WARMUP,
+              "log_every_steps": 1, "seed": SEED, **kw}
+    return Trainer(model, TrainerConfig(**config), loss_fn=causal_lm_loss,
+                   eval_metrics_fn=causal_lm_eval_metrics)
+
+
+def share(x: float) -> str:
+    """An idle share for printing; a NaN one was not measured."""
+    return "not measured" if math.isnan(x) else f"{100 * x:.1f}%"
+
+
+def check_logged_against(graphed: dict, eager: dict, what: str,
+                         card: str) -> None:
+    """Every loss the graphed fit logged (at chunk ends and tail steps)
+    within GRAPH_LOSS_RTOL of the eager fit's at the same step."""
+    worst = max((abs(loss - eager["logged"][step])
+                 / abs(eager["logged"][step]), step)
+                for step, loss in graphed["logged"].items())
+    print(f"  {what}: graphed losses at steps {sorted(graphed['logged'])} "
+          f"vs eager: worst relative difference {worst[0]:.3e} at step "
+          f"{worst[1]} (limit {GRAPH_LOSS_RTOL}) [{card}]", flush=True)
+    if worst[0] > GRAPH_LOSS_RTOL or len(graphed["logged"]) < 3:
+        raise AssertionError(f"{what}: graphed losses {graphed['logged']} "
+                             f"vs eager {eager['logged']}")
+
+
+def max_param_diff(model, want: dict) -> str:
+    """The largest difference of the model's parameters from ``want`` and
+    how many elements differ at all."""
+    sd = model.state_dict()
+    worst = max(((v - want[k]).abs().max().item(), k) for k, v in sd.items())
+    n = sum(int((v != want[k]).sum()) for k, v in sd.items())
+    total = sum(v.numel() for v in sd.values())
+    return f"{worst[0]:.3e} ({worst[1]}), {n} of {total} elements differ"
+
+
+def phase_train(card: str) -> tuple[dict, float]:
+    """GPT-2 small trained by the port's Trainer.fit on the card, eagerly
+    and then graphed (fused_steps=TRAIN_FUSED: each chunk one CUDA graph
+    replay) from the same weights; a checkpoint round trip, the checkpoint
+    crossing between graphed and eager fits both ways, one graphed chunk
+    under profile_dir, and the f32 grad check. Returns each kernel's
+    launches over the two fits and the eager median step time (ms)."""
+    import torch
+
+    from kubeflow_tpu_torch.kernels import KERNELS
+    from kubeflow_tpu_torch.models.gpt import GPTConfig
     from kubeflow_tpu_torch.train.checkpoint import Checkpointer
     from kubeflow_tpu_torch.train.data import synthetic_lm_dataset
-    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = GPTConfig.small(attention="flash", dropout_rate=0.0,
                           max_len=TRAIN_LEN)
@@ -849,12 +929,9 @@ def phase_train(card: str) -> tuple[dict, float]:
     ds = synthetic_lm_dataset(n_train=TRAIN_BATCH * TRAIN_STEPS,
                               n_test=TRAIN_BATCH, seq_len=TRAIN_LEN,
                               vocab_size=cfg.vocab_size, seed=SEED)
-    model = GPTLM(cfg, device="cuda").init_weights(
-        torch.Generator().manual_seed(SEED))
-    trainer = Trainer(model, TrainerConfig(
-        batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, learning_rate=3e-4,
-        warmup_steps=TRAIN_WARMUP, log_every_steps=1, seed=SEED),
-        loss_fn=causal_lm_loss, eval_metrics_fn=causal_lm_eval_metrics)
+    trainer = gpt_trainer(cfg, SEED)
+    model = trainer.model
+    init = {k: v.clone() for k, v in model.state_dict().items()}
     n_params = sum(p.numel() for p in model.parameters())
     print(f"phase 6: GPT-2 small, {n_params} params "
           f"({sorted({str(p.dtype) for p in model.parameters()})}), compute "
@@ -864,16 +941,6 @@ def phase_train(card: str) -> tuple[dict, float]:
     if trainer.compute_dtype != torch.bfloat16:
         raise AssertionError(f"AUTO resolved to {trainer.compute_dtype}")
 
-    step_ends = []
-    real_step = trainer.train_step
-
-    def timed_step(state, batch):
-        out = real_step(state, batch)
-        torch.cuda.synchronize()
-        step_ends.append(time.perf_counter())
-        return out
-
-    trainer.train_step = timed_step
     # the peak is the fit's: what earlier phases left for the collector
     # (phase 4's models) goes first
     held = torch.cuda.memory_allocated() / 2**30
@@ -882,36 +949,29 @@ def phase_train(card: str) -> tuple[dict, float]:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after "
           f"gc.collect() [{card}]", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    log = io.StringIO()
-    for kern in KERNELS.values():
-        kern.launches = 0      # the training path's run starts here
-        kern.forms.clear()
-    t_fit = time.perf_counter()
-    with contextlib.redirect_stdout(log):
-        state, final = trainer.fit(ds)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t_fit
-    launches = {name: kern.launches for name, kern in KERNELS.items()}
-    dd_forms = dict(KERNELS["flash_bwd_dd"].forms)
+    eager = fit_timed(trainer, ds)  # the training path's run starts here
+    state = eager["state"]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    lines = [metrics.parse_line(x) for x in log.getvalue().splitlines()]
-    losses = [x["loss"] for x in lines if "loss" in x]
-    steady = np.diff(step_ends[2:])          # past the first two steps
-    step_ms = float(np.median(steady)) * 1e3
-    print(f"  fit: {fit_s:.2f}s; losses {' '.join(f'{x:.4f}' for x in losses)}"
-          f"; final eval loss {final['final_loss']:.4f} [{card}]", flush=True)
-    print(f"  step time {step_ms:.2f} ms (median of steps 4..{TRAIN_STEPS}, "
-          f"min {steady.min() * 1e3:.2f}, max {steady.max() * 1e3:.2f}); "
-          f"{TRAIN_BATCH * TRAIN_LEN / step_ms * 1e3:.1f} tokens/s; first "
-          f"step {(step_ends[0] - t_fit) * 1e3:.1f} ms; peak memory "
-          f"{peak:.2f} GiB; launches {launches}; flash_bwd_dd by form "
-          f"{dd_forms} [{card}]", flush=True)
+    launches = dict(eager["launches"])
+    losses = eager["losses"]
+    step_ms = eager["step_ms"]
+    first_ms = (eager["dispatches"][0]["end"] - eager["start"]) * 1e3
+    print(f"  eager fit: {eager['wall']:.2f}s; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; final eval loss "
+          f"{eager['final']['final_loss']:.4f} [{card}]", flush=True)
+    print(f"  eager step time {step_ms:.2f} ms (median of steps "
+          f"4..{TRAIN_STEPS}); {TRAIN_BATCH * TRAIN_LEN / step_ms * 1e3:.1f} "
+          f"tokens/s; first step {first_ms:.1f} ms; peak memory "
+          f"{peak:.2f} GiB; launches {launches}; "
+          f"flash_bwd_dd by form "
+          f"{dict(KERNELS['flash_bwd_dd'].forms)} [{card}]", flush=True)
     n_eval = 2 * cfg.num_layers   # the epoch's eval and the final eval
     want = {"flash_fwd": cfg.num_layers * TRAIN_STEPS + n_eval,
             **{n: cfg.num_layers * TRAIN_STEPS
                for n in ("flash_bwd_dd", "flash_bwd_dq", "flash_bwd_dkv")}}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    check_flash_steps(eager, cfg.num_layers, "GPT-2 small, eager")
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) \
             or not losses[-1] < losses[0]:
         raise AssertionError(f"training did not run clean: losses {losses}")
@@ -920,10 +980,7 @@ def phase_train(card: str) -> tuple[dict, float]:
     saved = {k: v.clone() for k, v in state.model.state_dict().items()}
     with tempfile.TemporaryDirectory() as tmp:
         Checkpointer(tmp).save(state.step, state)
-        other = GPTLM(cfg, device="cuda").init_weights(
-            torch.Generator().manual_seed(SEED + 7))
-        fresh = Trainer(other, TrainerConfig(batch_size=TRAIN_BATCH),
-                        loss_fn=causal_lm_loss)
+        fresh = gpt_trainer(cfg, SEED + 7)
         step, restored = Checkpointer(tmp).restore_latest(fresh.init_state())
     same = all(torch.equal(v, saved[k])
                for k, v in restored.model.state_dict().items())
@@ -933,30 +990,289 @@ def phase_train(card: str) -> tuple[dict, float]:
         raise AssertionError("checkpoint round trip changed the params")
     batch = tuple(torch.as_tensor(a[:TRAIN_BATCH], device="cuda")
                   for a in (ds.x_train, ds.y_train))
-    profile_step(lambda: real_step(state, batch), step_ms, card)
-    del state, restored, fresh, other, trainer, model
+    eager_idle = profile_step(lambda: trainer.train_step(state, batch),
+                              step_ms, card)
+    del state, restored, fresh, trainer, model, eager["state"]
     torch.cuda.empty_cache()
+
+    # ---- the same fit graphed, from the same weights
+    gtrainer = gpt_trainer(cfg, SEED, fused_steps=TRAIN_FUSED)
+    gtrainer.model.load_state_dict(init)
+    torch.cuda.reset_peak_memory_stats()
+    graphed = fit_timed(gtrainer, ds)
+    gpeak = torch.cuda.max_memory_allocated() / 2**30
+    gstate = graphed["state"]
+    warm = gtrainer.graph_warmups
+    gwant = {"flash_fwd": cfg.num_layers * (TRAIN_STEPS + warm) + n_eval,
+             **{n: cfg.num_layers * (TRAIN_STEPS + warm)
+                for n in ("flash_bwd_dd", "flash_bwd_dq", "flash_bwd_dkv")}}
+    print(f"  graphed fit (fused_steps={TRAIN_FUSED}): {graphed['wall']:.2f}"
+          f"s; dispatches of "
+          f"{[d['steps'] for d in graphed['dispatches']]} steps, the first "
+          f"after {warm} warm-up step(s) and the capture; launches "
+          f"{graphed['launches']} (expected {gwant}) [{card}]", flush=True)
+    if graphed["launches"] != gwant:
+        raise AssertionError(f"graphed launches {graphed['launches']}, "
+                             f"expected {gwant}")
+    check_flash_steps(graphed, cfg.num_layers, "GPT-2 small, graphed")
+    check_logged_against(graphed, eager, "GPT-2 small", card)
+    diff = max_param_diff(gstate.model, saved)
+    k = TRAIN_FUSED
+    stacked = tuple(np.stack([a[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                              for i in range(k)])
+                    for a in (ds.x_train, ds.y_train))
+    graphed_idle = profile_step(
+        lambda: gtrainer.train_chunk(gstate, stacked, k),
+        graphed["chunk_ms"], card, what=f"chunk of {k} steps")
+    gms = graphed["chunk_ms"]
+    print(f"  graphed vs eager, GPT-2 small at {TRAIN_BATCH} x {TRAIN_LEN}: "
+          f"step {gms:.2f} vs {step_ms:.2f} ms (graphed: a chunk's time over "
+          f"its {k} steps, chunks 2..; eager: median of steps 4..), "
+          f"{TRAIN_BATCH * TRAIN_LEN / gms * 1e3:.1f} vs "
+          f"{TRAIN_BATCH * TRAIN_LEN / step_ms * 1e3:.1f} tokens/s, peak "
+          f"memory {gpeak:.2f} vs {peak:.2f} GiB, idle share of a profiled "
+          f"chunk {share(graphed_idle)} vs a profiled step "
+          f"{share(eager_idle)}; largest final parameter difference "
+          f"{diff} [{card}]", flush=True)
+    for name, n in graphed["launches"].items():
+        launches[name] += n
+
+    phase_crossing(cfg, ds, gtrainer, gstate, card)
+    del gstate, gtrainer, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_profile_chunk(cfg, ds, card)
     phase_grad_check(cfg, ds, card)
     return launches, step_ms
 
 
-def profile_step(step, step_ms: float, card: str) -> None:
-    """One training step under torch.profiler (device activity only): the
-    ten device ops that take the most time, each hand-written kernel's
-    device time per launch, and the device's idle share of the step."""
+def phase_crossing(cfg, ds, gtrainer, gstate, card: str) -> None:
+    """A graphed fit's checkpoint restores into an eager trainer, and the
+    eager one's into a fresh graphed trainer. Across each crossing the next
+    two steps' losses are the same on both sides, bit for bit (the same
+    parameters, Adam moments and counts, batch and kernels); the graphed
+    side then captures and replays a chunk over the restored state."""
+    import torch
+
+    from kubeflow_tpu_torch.train.checkpoint import Checkpointer
+
+    b = TRAIN_BATCH
+    two = [tuple(torch.as_tensor(a[i * b:(i + 1) * b], device="cuda")
+                 for a in (ds.x_train, ds.y_train)) for i in (3, 4)]
+
+    def next_two(tr_a, st_a, tr_b, st_b):
+        got = []
+        for batch in two:
+            st_a, ma = tr_a.train_step(st_a, batch)
+            st_b, mb = tr_b.train_step(st_b, batch)
+            got.append((float(ma["loss"]), float(mb["loss"])))
+        return st_a, st_b, got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(f"{tmp}/graphed").save(gstate.step, gstate)
+        eager = gpt_trainer(cfg, SEED + 11)
+        step_e, est = Checkpointer(f"{tmp}/graphed").restore_latest(
+            eager.init_state())
+        gstate, est, there = next_two(gtrainer, gstate, eager, est)
+        Checkpointer(f"{tmp}/eager").save(est.step, est)
+        graphed = gpt_trainer(cfg, SEED + 12, fused_steps=TRAIN_FUSED)
+        step_g, gst2 = Checkpointer(f"{tmp}/eager").restore_latest(
+            graphed.init_state())
+        est, gst2, back = next_two(eager, est, graphed, gst2)
+    k = TRAIN_FUSED
+    stacked = tuple(np.stack([a[i * b:(i + 1) * b] for i in range(k)])
+                    for a in (ds.x_train, ds.y_train))
+    gst2, m = graphed.train_chunk(gst2, stacked, k)
+    chunk_loss = float(m["loss"])
+    print(f"  checkpoint crossing: graphed step {step_e} -> eager, next two "
+          f"losses (graphed, eager) {there}; eager step {step_g} -> graphed, "
+          f"next two (eager, graphed) {back}, then a chunk of {k} captured "
+          f"and replayed over the restored state, last loss "
+          f"{chunk_loss:.4f} [{card}]", flush=True)
+    if any(a != b for a, b in there + back):
+        raise AssertionError(f"checkpoint crossing: {there} {back}")
+    if not math.isfinite(chunk_loss) or gst2.step != step_g + 2 + k:
+        raise AssertionError(f"graphed after crossing: {chunk_loss}, step "
+                             f"{gst2.step}")
+
+
+def trace_kernel_counts(events: list) -> dict:
+    """Launches of each hand-written kernel in a Chrome trace's events."""
     import re
 
-    events, wall = device_events(step, 1)
+    out = {n: 0 for n in ("flash_fwd", "flash_bwd_dd", "flash_bwd_dq",
+                          "flash_bwd_dkv")}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        m = re.search(r"(flash_fwd|flash_bwd_dd|flash_bwd_dq|flash_bwd_dkv)"
+                      r"(?:_vec|_tc)?_kernel", e.get("name", ""))
+        if m and "pytorch_flash" not in e["name"]:
+            out[m.group(1)] += 1
+    return out
+
+
+def phase_profile_chunk(cfg, ds, card: str) -> None:
+    """One graphed chunk of GPT-2 small under TrainerConfig.profile_dir (a
+    fit of TRAIN_FUSED steps: the warm-up step, the capture, one replay and
+    the evals): each flash kernel's launches in the written Chrome trace
+    against the counters, and how many the trace lost, split into the
+    eager launches and the graph's."""
+    import contextlib
+    import glob
+    import io
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = gpt_trainer(cfg, SEED, steps=TRAIN_FUSED,
+                              fused_steps=TRAIN_FUSED, profile_dir=tmp)
+        log = io.StringIO()
+        zero_launches()
+        with contextlib.redirect_stdout(log):
+            trainer.fit(ds)
+        counted = _launch_counts()
+        (path,) = glob.glob(f"{tmp}/*.pt.trace.json")
+        size = os.path.getsize(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    if "profile_trace_written=1" not in log.getvalue():
+        raise AssertionError("the fit wrote no profile_trace_written line")
+    in_trace = trace_kernel_counts(events)
+    # a graph's kernels share the correlation id of its cudaGraphLaunch
+    replays = {(e.get("args") or {}).get("correlation") for e in events
+               if e.get("name") == "cudaGraphLaunch"}
+    graph_kernels = [e for e in events if e.get("cat") == "kernel"
+                     and (e.get("args") or {}).get("correlation") in replays]
+    in_graph = trace_kernel_counts(graph_kernels)
+    n_layers, steps = cfg.num_layers, TRAIN_FUSED
+    replayed = {n: n_layers * steps for n in in_trace}
+    print(f"  profile_dir: one graphed chunk of {steps} steps (fit with "
+          f"{trainer.graph_warmups} warm-up step, capture, replay, evals), "
+          f"trace {size / 2**20:.1f} MiB, {len(events)} events, "
+          f"{sum(1 for e in events if e.get('cat') == 'kernel')} kernel "
+          f"records ({len(graph_kernels)} from {len(replays - {None})} "
+          f"graph replay(s)) [{card}]", flush=True)
+    for n in in_trace:
+        print(f"    {n}: counted {counted[n]} (of them {replayed[n]} in the "
+              f"graph replay), in the trace {in_trace[n]} (from the graph "
+              f"{in_graph[n]}), lost {counted[n] - in_trace[n]} [{card}]",
+              flush=True)
+    over = {n: c for n, c in in_trace.items() if c > counted[n]}
+    if over:
+        raise AssertionError(f"the trace holds more launches than were "
+                             f"counted: {over} vs {counted}")
+
+
+def restart_child(cache_dir: str) -> None:
+    """One incarnation of the restart-warm check, run in its own process by
+    phase_restart_warm: a short graphed GPT-2 small fit with
+    compile_cache_dir, traced. Its last line: the train.compile span's
+    attributes, the process's nvcc runs and library loads, the logged
+    losses."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kubeflow_tpu_torch.models.gpt import GPTConfig
+    from kubeflow_tpu_torch.tracing.core import Tracer, set_tracer
+    from kubeflow_tpu_torch.train import metrics
+    from kubeflow_tpu_torch.train.data import synthetic_lm_dataset
+    from kubeflow_tpu_torch.utils.compile_cache import compile_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tracer = set_tracer(Tracer())
+    cfg = GPTConfig.small(attention="flash", dropout_rate=0.0,
+                          max_len=RESTART_LEN)
+    ds = synthetic_lm_dataset(n_train=RESTART_BATCH * RESTART_STEPS,
+                              n_test=RESTART_BATCH, seq_len=RESTART_LEN,
+                              vocab_size=cfg.vocab_size, seed=SEED)
+    trainer = gpt_trainer(cfg, SEED, batch_size=RESTART_BATCH,
+                          steps=RESTART_STEPS, fused_steps=RESTART_FUSED,
+                          compile_cache_dir=cache_dir)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        trainer.fit(ds)
+    (span,) = [sp for sp in tracer.snapshot()
+               if sp["name"] == "train.compile"]
+    lines = [metrics.parse_line(x) for x in log.getvalue().splitlines()]
+    print(json.dumps({"compile": span["attrs"], "counts": compile_counts(),
+                      "logged": [[x["step"], x["loss"]] for x in lines
+                                 if "loss" in x]}))
+
+
+def phase_restart_warm(card: str) -> None:
+    """Two incarnations (fresh processes) of a short graphed GPT-2 small fit
+    over one fresh compile_cache_dir: the first builds every kernel library
+    into it (its train.compile span says so), the second runs nvcc zero
+    times, loads the libraries from it and captures its graph; both log the
+    same losses."""
+    from kubeflow_tpu_torch.kernels.build import sources
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    with tempfile.TemporaryDirectory() as cache:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c",
+                 f"import chip_smoke as c; c.restart_child({cache!r})"],
+                cwd=here, capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"restart-warm incarnation failed: {proc.stderr[-3000:]}")
+            runs.append((json.loads(proc.stdout.strip().splitlines()[-1]),
+                         time.perf_counter() - t0))
+    n_src = len(sources())
+    for i, (run, wall) in enumerate(runs):
+        c = run["compile"]
+        print(f"  restart-warm incarnation {i + 1}: train.compile builds "
+              f"{c['builds']}, loaded {c['loaded']!r}, graph "
+              f"{c.get('graph')!r}, {c['seconds']:.2f}s; the process ran "
+              f"nvcc {run['counts']['nvcc_runs_total']} times and loaded "
+              f"{run['counts']['libraries_loaded_total']} libraries; logged "
+              f"{run['logged']}; {wall:.1f}s with the interpreter [{card}]",
+              flush=True)
+    (first, _), (second, _) = runs
+    if (first["compile"]["builds"] != n_src
+            or second["compile"]["builds"] != 0
+            or second["counts"]["nvcc_runs_total"] != 0
+            or second["counts"]["libraries_loaded_total"] != n_src
+            or first["compile"].get("graph") != f"train_chunk_"
+            f"{RESTART_FUSED}" or second["compile"].get("graph")
+            != first["compile"]["graph"]
+            or first["logged"] != second["logged"]):
+        raise AssertionError(f"restart-warm: {runs}")
+
+
+def profile_step(step, step_ms: float, card: str, what: str = "step") -> float:
+    """One training step (or chunk: ``what``) under torch.profiler (device
+    activity only): the ten device ops that take the most time, each
+    hand-written kernel's device time per launch, and the device's idle
+    share of the step, which it returns."""
+    import re
+
+    events = None
+    for attempt in range(4):
+        try:
+            events, wall = device_events(step, 1, 4 * PROFILE_PAD * 2 ** attempt)
+            break
+        except AssertionError:
+            continue
+    if events is None:
+        print(f"  profiled {what}: not measured (four traces held no device "
+              f"activity) [{card}]", flush=True)
+        return float("nan")
     by_name: dict = {}
     for name, _, dur in events:
         total, n = by_name.get(name, (0.0, 0))
         by_name[name] = (total + dur, n + 1)
     busy = busy_us(events)
-    print(f"  profiled step: {wall * 1e3:.2f} ms host wall (unprofiled "
-          f"median {step_ms:.2f} ms), device busy {busy / 1e3:.2f} ms, idle "
-          f"share {100 * (1 - busy / (wall * 1e6)):.1f}%, {len(events)} "
-          f"device activities [{card}]", flush=True)
-    print("  top ten device ops of the step (ms, launches, share of the "
+    idle = 1 - busy / (wall * 1e6)
+    print(f"  profiled {what}: {wall * 1e3:.2f} ms host wall (unprofiled "
+          f"median {step_ms:.2f} ms a step), device busy {busy / 1e3:.2f} "
+          f"ms, idle share {100 * idle:.1f}%, {len(events)} device "
+          f"activities [{card}]", flush=True)
+    print(f"  top ten device ops of the {what} (ms, launches, share of the "
           "busy time):")
     for name, (total, n) in sorted(by_name.items(),
                                    key=lambda x: -x[1][0])[:10]:
@@ -969,10 +1285,11 @@ def profile_step(step, step_ms: float, card: str) -> None:
         if m and "pytorch_flash" not in name:
             t, c = ours.get(m.group(1), (0.0, 0))
             ours[m.group(1)] = (t + total, c + n)
-    print("  hand-written kernels in the step: " + ", ".join(
+    print(f"  hand-written kernels in the {what}: " + ", ".join(
         f"{k} {t / c / 1e3:.5f} ms x {c} = {t / 1e3:.3f} ms "
         f"({100 * t / busy:.1f}% of busy)" for k, (t, c) in sorted(
             ours.items())) + f" [{card}]", flush=True)
+    return idle
 
 
 def phase_grad_check(cfg, ds, card: str) -> None:
@@ -1035,31 +1352,41 @@ def phase_grad_check(cfg, ds, card: str) -> None:
 
 
 def fit_timed(trainer, ds) -> dict:
-    """trainer.fit(ds) with each step synchronised and timed and each
-    step's kernel launches recorded. Returns the state, the final metrics,
-    the logged losses, the median step time (ms, steps 4..N), the launches
-    of each step and of the whole fit (evals included), and the wall."""
+    """trainer.fit(ds) with each dispatch (a step, or a chunk of fused
+    steps: one CUDA graph replay) synchronised and timed, and its kernel
+    launches and the warm-up steps it took before a capture recorded.
+    Returns the state, the final metrics, the logged losses (in order and
+    by step), the median step time (ms) of steps 4..N one by one, the step
+    time of the chunks (a chunk's time over its steps, from the second
+    chunk on; None without chunks), per dispatch its steps, launches and
+    warm-up steps, the launches of the whole fit (evals included), and the
+    wall."""
     import contextlib
     import io
 
     import torch
 
-    from kubeflow_tpu_torch.kernels import KERNELS
     from kubeflow_tpu_torch.train import metrics
 
-    ends, per_step = [], []
-    real = trainer.train_step
+    dispatches = []
+    real = {"train_step": trainer.train_step,
+            "train_chunk": trainer.train_chunk}
 
-    def step(state, batch):
-        before = {n: k.launches for n, k in KERNELS.items()}
-        out = real(state, batch)
-        torch.cuda.synchronize()
-        ends.append(time.perf_counter())
-        per_step.append({n: k.launches - before[n]
-                         for n, k in KERNELS.items()})
-        return out
+    def timed(fn):
+        def call(state, batch, *k):
+            before, warm = _launch_counts(), trainer.graph_warmups
+            out = fn(state, batch, *k)
+            torch.cuda.synchronize()
+            after = _launch_counts()
+            dispatches.append({
+                "steps": k[0] if k else 1, "end": time.perf_counter(),
+                "launches": {n: after[n] - before[n] for n in after},
+                "warmup": trainer.graph_warmups - warm})
+            return out
+        return call
 
-    trainer.train_step = step
+    for name, fn in real.items():
+        setattr(trainer, name, timed(fn))
     log = io.StringIO()
     zero_launches()  # this path's run starts here
     t0 = time.perf_counter()
@@ -1068,26 +1395,43 @@ def fit_timed(trainer, ds) -> dict:
             state, final = trainer.fit(ds)
         torch.cuda.synchronize()
     finally:
-        trainer.train_step = real
+        for name, fn in real.items():
+            setattr(trainer, name, fn)
     wall = time.perf_counter() - t0
     lines = [metrics.parse_line(x) for x in log.getvalue().splitlines()]
-    steady = np.diff(ends[2:]) if len(ends) > 3 else np.diff(ends)
+    ends = [d["end"] for d in dispatches]
+    singles = [b - a for a, b, d in zip(ends, ends[1:], dispatches[1:])
+               if d["steps"] == 1]
+    chunks = [(b - a) / d["steps"]
+              for a, b, d in zip(ends, ends[1:], dispatches[1:])
+              if d["steps"] > 1]
+    steady = singles[2:] if len(singles) > 3 else singles
     return {"state": state, "final": final,
             "losses": [x["loss"] for x in lines if "loss" in x],
-            "step_ms": float(np.median(steady)) * 1e3,
-            "per_step": per_step, "wall": wall,
-            "launches": {n: k.launches for n, k in KERNELS.items()}}
+            "logged": {int(x["step"]): x["loss"] for x in lines
+                       if "loss" in x},
+            "step_ms": float(np.median(steady)) * 1e3 if steady else None,
+            "chunk_ms": float(np.median(chunks)) * 1e3 if chunks else None,
+            "per_step": [d["launches"] for d in dispatches],
+            "dispatches": dispatches, "start": t0, "wall": wall,
+            "launches": _launch_counts()}
 
 
 def check_flash_steps(run: dict, n_layers: int, what: str) -> None:
-    """Every step launched each flash kernel once per layer (D pre-kernel
-    included: the default backward computes D first)."""
-    want = {"flash_fwd": n_layers, "flash_bwd_dd": n_layers,
-            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
-    bad = [i for i, n in enumerate(run["per_step"]) if n != want]
+    """Every dispatch launched each flash kernel once per layer for each
+    step it ran, warm-up steps before a capture included (D pre-kernel
+    included: the default backward computes D first). A graph replay's
+    launches are the ones its capture recorded, added by the trainer."""
+    bad = []
+    for i, d in enumerate(run["dispatches"]):
+        n = n_layers * (d["steps"] + d["warmup"])
+        want = {"flash_fwd": n, "flash_bwd_dd": n, "flash_bwd_dq": n,
+                "flash_bwd_dkv": n}
+        if d["launches"] != want:
+            bad.append((i, d["launches"], want))
     if bad:
-        raise AssertionError(f"{what}: steps {bad} launched "
-                             f"{run['per_step'][bad[0]]}, expected {want}")
+        raise AssertionError(f"{what}: dispatches {[b[0] for b in bad]} "
+                             f"launched {bad[0][1]}, expected {bad[0][2]}")
 
 
 def served_logits(srv, name: str, x: np.ndarray) -> tuple[np.ndarray, float]:
@@ -1258,9 +1602,11 @@ def phase_bert(tmp: str, card: str, launches: dict) -> None:
     """(b) BERT-base with attention="flash", dropout 0, bf16 compute:
     the classifier trained at bench.py's 16 x 128 (padded rows) with the
     flash kernels' launches checked every step, one more step profiled;
-    one f32 step through the
-    kernels against the plain attention path; served as bert-classifier
-    (base); then BertForMaskedLM for a few steps at the same shape."""
+    the same fit graphed (fused_steps=FAM_BERT_FUSED) from the same
+    weights, its losses, launches, step time and a profiled chunk beside
+    the eager fit's; one f32 step through the kernels against the plain
+    attention path; served as bert-classifier (base); then BertForMaskedLM
+    for a few steps at the same shape."""
     import dataclasses
 
     import torch
@@ -1317,12 +1663,48 @@ def phase_bert(tmp: str, card: str, launches: dict) -> None:
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"BERT-base did not train clean: {losses}")
     add_launches(launches, run["launches"])
+    fitted = {k: v.clone() for k, v in model.state_dict().items()}
     batch = tuple(torch.as_tensor(a[:b], device="cuda")
                   for a in (ds.x_train, ds.y_train))
-    profile_step(lambda: trainer.train_step(run["state"], batch),
-                 run["step_ms"], card)
+    eager_idle = profile_step(lambda: trainer.train_step(run["state"], batch),
+                              run["step_ms"], card)
     trained = {k: v.clone() for k, v in model.state_dict().items()}
+    eager = {k: run[k] for k in ("logged", "step_ms")}
     del trainer, run, model, batch
+    torch.cuda.empty_cache()
+
+    # ---- the same fit graphed (fused_steps=FAM_BERT_FUSED), same weights
+    k = FAM_BERT_FUSED
+    model = BertForSequenceClassification(cfg, 2, device="cuda")
+    model.load_state_dict(init)
+    trainer = Trainer(model, TrainerConfig(
+        batch_size=b, steps=steps, learning_rate=1e-4, log_every_steps=1,
+        seed=SEED, fused_steps=k))
+    run = fit_timed(trainer, ds)
+    check_flash_steps(run, cfg.num_layers, "BERT-base classifier, graphed")
+    warm = trainer.graph_warmups
+    if run["launches"]["flash_fwd"] != (cfg.num_layers * (steps + warm)
+                                        + n_eval):
+        raise AssertionError(f"graphed BERT fit launches {run['launches']}")
+    check_logged_against(run, eager, "(b) BERT-base", card)
+    diff = max_param_diff(model, fitted)
+    del fitted
+    stacked = tuple(np.stack([a[i * b:(i + 1) * b] for i in range(k)])
+                    for a in (ds.x_train, ds.y_train))
+    graphed_idle = profile_step(
+        lambda: trainer.train_chunk(run["state"], stacked, k),
+        run["chunk_ms"], card, what=f"chunk of {k} steps")
+    gms = run["chunk_ms"]
+    print(f"  (b) graphed vs eager, BERT-base at {b} x {l}: step {gms:.2f} "
+          f"vs {eager['step_ms']:.2f} ms ({1e3 / gms:.2f} vs "
+          f"{1e3 / eager['step_ms']:.2f} steps/s), idle share of a profiled "
+          f"chunk {share(graphed_idle)} vs a profiled step "
+          f"{share(eager_idle)}; dispatches of "
+          f"{[d['steps'] for d in run['dispatches']]} steps after {warm} "
+          f"warm-up step(s); launches {run['launches']}; largest final "
+          f"parameter difference {diff} [{card}]", flush=True)
+    add_launches(launches, run["launches"])
+    del trainer, run, model, stacked
     torch.cuda.empty_cache()
 
     # ---- one f32 step through the kernels against the plain path
@@ -3130,6 +3512,7 @@ def main() -> int:
           flush=True)
     timings.update(phase_backward(peaks, card, routes))
     launches, step_ms = phase_train(card)
+    phase_restart_warm(card)
     family_launches = phase_families(card)
     # phases 8 and 9 come after phase 6: run between phases 7 and 5, phase
     # 8 was followed by torch.profiler traces that lost a kernel's launches
@@ -3141,7 +3524,9 @@ def main() -> int:
     print(f"  pod path: flash_fwd launches {pod_launches} (in the prefill "
           f"pod's process) [{card}]", flush=True)
     engine_launches += spec_launches + pod_launches
-    per_step = launches["flash_bwd_dq"] // TRAIN_STEPS  # one per layer
+    from kubeflow_tpu_torch.models.gpt import GPTConfig
+
+    per_step = GPTConfig.small().num_layers  # one launch a layer a step
     attn_ms = per_step * sum(t["ms"] for t in timings.values())
     # SDPA's backward stands beside dq and dkv together: count it once
     lib_ms = per_step * sum(timings[n]["library_ms"] for n in (

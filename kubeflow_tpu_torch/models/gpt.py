@@ -38,6 +38,7 @@ from kubeflow_tpu_torch.models.layers import (
     VocabEmbed,
     block_seeds,
     dropout,
+    linear_then_bias,
 )
 from kubeflow_tpu_torch.models.layers import block_generator as _generator
 from kubeflow_tpu_torch.parallel.rope import apply_rope
@@ -190,7 +191,8 @@ def causal_dense_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
 
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=compute_dtype)``: float32 parameters; the input,
-    the weight and the bias are cast to the compute dtype at use."""
+    the weight and the bias are cast to the compute dtype at use, and the
+    bias is added after the product is rounded (``linear_then_bias``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
                  compute_dtype: torch.dtype, device: torch.device):
@@ -200,8 +202,9 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt),
-                        None if self.bias is None else self.bias.to(dt))
+        return linear_then_bias(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
 
 
 class DecoderNorm(nn.Module):

@@ -97,11 +97,21 @@ class VocabEmbed(nn.Embedding):
         return x.to(dt) @ self.weight.to(dt).T
 
 
+def linear_then_bias(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None) -> torch.Tensor:
+    """``F.linear(x, w, b)`` with flax's rounding: below float32 the
+    product is rounded to the compute dtype before the bias is added (flax
+    adds the bias to the rounded product); float32 keeps one call."""
+    if b is None or x.dtype == torch.float32:
+        return F.linear(x, w, b)
+    return F.linear(x, w) + b
+
+
 class DenseGeneral(nn.Module):
     """flax ``nn.DenseGeneral`` (and ``nn.Dense``, one input and one output
     dim): contracts the last ``len(in_shape)`` dims of x with a float32
-    kernel of shape in_shape + out_shape, adds the bias, in the compute
-    dtype."""
+    kernel of shape in_shape + out_shape, adds the bias after the product
+    is rounded, in the compute dtype."""
 
     def __init__(self, in_shape, out_shape, use_bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
@@ -124,7 +134,7 @@ class DenseGeneral(nn.Module):
         w = self.kernel.to(dt).reshape(n_in, n_out)
         b = None if self.bias is None else self.bias.to(dt).reshape(n_out)
         # F.linear takes (out, in): the kernel's transpose is a view
-        y = F.linear(x.to(dt).reshape(*lead, n_in), w.T, b)
+        y = linear_then_bias(x.to(dt).reshape(*lead, n_in), w.T, b)
         return y.reshape(*lead, *self.out_shape)
 
 

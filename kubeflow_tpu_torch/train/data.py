@@ -12,6 +12,7 @@ current step.
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Iterator
@@ -238,7 +239,11 @@ class AsyncLoader:
       - a producer-side exception is re-raised on the CONSUMING thread at
         the position it occurred: never swallowed;
       - `close()` (or exhaustion) joins the worker — an early-exiting
-        consumer leaks no thread; idempotent, safe from `finally`.
+        consumer leaks no thread; idempotent, safe from `finally`;
+      - per-batch timing lands on `last_wait_s` (consumer blocked time:
+        what the step critical path paid) and `last_assemble_s` (producer
+        host work, overlapped), which the trainer stamps on its
+        `train.data_load` spans (`pop_stats`).
     """
 
     def __init__(
@@ -258,6 +263,8 @@ class AsyncLoader:
         self._done = False            # producer exhausted src
         self._stopped = False         # consumer closed
         self._exc: BaseException | None = None
+        self.last_wait_s = 0.0
+        self.last_assemble_s = 0.0
         self._thread = threading.Thread(
             target=self._run, name=f"kftpu-{name}", daemon=True)
         self._thread.start()
@@ -285,13 +292,15 @@ class AsyncLoader:
 
     def _produce(self) -> None:
         for item in self._src:
+            t0 = time.perf_counter()
             out = self._transform(item) if self._transform else item
+            dt = time.perf_counter() - t0
             with self._mu:
                 while len(self._buf) >= self._size and not self._stopped:
                     self._not_full.wait(timeout=0.1)
                 if self._stopped:
                     raise _LoaderStop
-                self._buf.append(out)
+                self._buf.append((out, dt))
                 self._not_empty.notify()
 
     # ------------------------------------------------------------ consumer
@@ -300,18 +309,26 @@ class AsyncLoader:
         return self
 
     def __next__(self):
+        t0 = time.perf_counter()
         with self._mu:
             while not self._buf and not self._done:
                 self._not_empty.wait(timeout=0.1)
-            if self._buf:
-                out = self._buf.pop(0)
-                self._not_full.notify()
-                return out
-            exc = self._exc
-            self._exc = None
-            if exc is not None:
-                raise exc  # the producer's failure, on OUR thread
-            raise StopIteration
+            if not self._buf:
+                exc = self._exc
+                self._exc = None
+                if exc is not None:
+                    raise exc  # the producer's failure, on OUR thread
+                raise StopIteration
+            out, self.last_assemble_s = self._buf.pop(0)
+            self._not_full.notify()
+        self.last_wait_s = time.perf_counter() - t0
+        return out
+
+    def pop_stats(self) -> dict[str, float]:
+        """Timing of the most recent batch: wait (on the critical path) and
+        assemble (the overlapped producer work)."""
+        return {"wait_s": self.last_wait_s,
+                "assemble_s": self.last_assemble_s}
 
     def close(self) -> None:
         """Stop the producer and JOIN its thread (no daemon leak); safe to

@@ -19,7 +19,22 @@ step updates in place. The semantics are the JAX Trainer's:
     global-norm clipping (g·max/‖g‖ only when ‖g‖ ≥ max); the step's
     ``loss``, ``accuracy`` and ``grad_norm`` come from the unclipped grads;
   - ``fit``: steps or epochs, ``name=value`` log lines, eval, checkpoint and
-    early-stop cadence, resume, the SIGTERM preemption save, heartbeats.
+    early-stop cadence, resume, the SIGTERM preemption save, heartbeats;
+    ``fused_steps`` chunks (the JAX package's one dispatch of k steps);
+    the restart-warm kernel cache (``compile_cache_dir``); a
+    torch.profiler trace of the fit (``profile_dir``); the tracing spans
+    (``KFTPU_TRACE_DIR``) under the JAX trainer's names and attributes.
+
+``fused_steps > 1`` on the card runs each full chunk of k steps as one
+replay of a CUDA graph of k ``train_step``s, captured once per chunk length
+(``train_chunk``): the chunk is uploaded into a static (k, B, ...) buffer.
+The optimizer stays torch's Adam/AdamW; inside the graph its update is
+written out (``_adam_update``) with the per-step scalars it computes on the
+host (step size, bias correction, AdamW's decay) read from a static device
+tensor the host fills before each replay, so a graphed step is the eager
+step bit for bit. Capture follows one warm-up step whose effects on the
+parameters, buffers, optimizer state and step are undone. On the CPU a
+chunk is k ``train_step``s in order.
 
 What ``fit`` cannot honour yet raises NotImplementedError naming its
 ROADMAP entry; it is never silently ignored.
@@ -31,6 +46,7 @@ import inspect
 import math
 import os
 import signal
+import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -40,6 +56,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeflow_tpu_torch.health import HeartbeatWriter
+from kubeflow_tpu_torch.kernels.build import (
+    add_launches,
+    launch_counts,
+    launches_since,
+)
 from kubeflow_tpu_torch.models.layers import as_torch_dtype
 from kubeflow_tpu_torch.train import metrics as metrics_lib
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
@@ -51,11 +72,37 @@ from kubeflow_tpu_torch.train.data import (
     to_device,
 )
 
-from kubeflow_tpu_torch.utils.envvars import (
-    ENV_EVENT_DIR,
-    ENV_PROFILE_DIR,
-    ENV_TRACE_DIR,
-)
+from kubeflow_tpu_torch.tracing.core import init_worker_from_env
+from kubeflow_tpu_torch.utils import compile_cache
+from kubeflow_tpu_torch.utils.envvars import ENV_EVENT_DIR, ENV_PROFILE_DIR
+
+#: real steps taken (and undone) before a CUDA graph of the step is captured:
+#: they allocate what the step allocates once (cuBLAS workspaces, Adam's
+#: moments, autograd's buffers)
+GRAPH_WARMUP_STEPS = 1
+
+
+def _traced_data_iter(tracer, it, stats_from=None):
+    """Wrap a batch iterator so each host-side fetch is a train.data_load
+    span carrying its fetch sequence number; ``stats_from`` (an
+    AsyncLoader) stamps the queue wait and the producer's assemble time on
+    it. The span is closed before the batch is yielded, and on every exit."""
+    it = iter(it)
+    seq = 0
+    while True:
+        sp = tracer.start_span("train.data_load", seq=seq)
+        seq += 1
+        try:
+            batch = next(it)
+            if stats_from is not None:
+                st = stats_from.pop_stats()
+                sp.set_attribute("wait_s", round(st["wait_s"], 9))
+                sp.set_attribute("assemble_s", round(st["assemble_s"], 9))
+        except StopIteration:
+            return
+        finally:
+            sp.end()
+        yield batch
 
 
 @dataclass
@@ -74,7 +121,10 @@ class TrainerConfig:
     grad_clip_norm: float = 0.0       # 0 = off (global-norm clipping)
     # accumulate this many microbatch grads per optimizer step
     grad_accum_steps: int = 1
-    # optimizer steps per dispatch in fit(); only 1 is ported
+    # optimizer steps per dispatch in fit(): full chunks of exactly this
+    # many steps (one CUDA graph replay on the card), the epoch tail and
+    # the `steps` boundary step by step; log, checkpoint and preemption
+    # cadence becomes chunk-granular. 1 = per-step dispatch
     fused_steps: int = 1
     seed: int = 0                     # dropout masks and batch order
     # None = AUTO (see the module docstring); else "float32", "bfloat16"
@@ -85,7 +135,8 @@ class TrainerConfig:
     checkpoint_every_steps: int = 200
     log_every_steps: int = 50
     mesh: Any = None                  # only None (one device) is ported
-    profile_dir: str = ""             # not ported: must stay ""
+    # torch.profiler Chrome trace of fit; "" defers to KFTPU_PROFILE_DIR
+    profile_dir: str = ""
     # tfevents scalar output for TensorBoard; "" defers to KFTPU_EVENT_DIR
     event_dir: str = ""
     # keep the max_to_keep BEST checkpoints by this eval-metric key instead
@@ -100,7 +151,12 @@ class TrainerConfig:
     early_stop_mode: str = "max"      # max | min — independent of best_mode
     early_stop_min_delta: float = 0.0
     data_placement: str = "replicated"  # only "replicated" is ported
-    compile_cache_dir: str = ""       # not ported: must stay ""
+    # restart-warm kernel cache (utils/compile_cache.py); "" defers to
+    # KFTPU_COMPILE_CACHE_DIR. When a dir resolves, fit builds and loads the
+    # kernels' libraries there (and captures the chunk's CUDA graph) under a
+    # train.compile span before the first step: a restarted incarnation
+    # runs nvcc zero times
+    compile_cache_dir: str = ""
     # background-thread host input pipeline (train/data.AsyncLoader); batch
     # order and content are identical either way
     async_loader: bool = True
@@ -111,12 +167,6 @@ def _refuse_unported(c: TrainerConfig) -> None:
     refusals = [
         (c.mesh is not None, "mesh: sharding over a device mesh is ported "
          "with the parallelism slice (ROADMAP Queue A item 8)"),
-        (c.fused_steps > 1, "fused_steps > 1: multi-step dispatch is not "
-         "ported (ROADMAP Queue A item 3)"),
-        (bool(c.compile_cache_dir), "compile_cache_dir: the restart-warm "
-         "compile cache is not ported (ROADMAP Queue A item 3)"),
-        (bool(c.profile_dir), "profile_dir: the profiler trace of fit is "
-         "not ported (ROADMAP Queue A item 3)"),
         (c.data_placement != "replicated",
          f"data_placement={c.data_placement!r}: per-process data needs the "
          "distributed bootstrap (ROADMAP Queue A item 6)"),
@@ -157,6 +207,9 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    #: bumped by load_state_dict, which replaces the optimizer's state
+    #: tensors: a CUDA graph captured over the old ones must not replay
+    generation: int = 0
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),
@@ -166,6 +219,7 @@ class TrainState:
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])
+        self.generation += 1
 
 
 class Trainer:
@@ -212,6 +266,10 @@ class Trainer:
             )
             if config.checkpoint_dir else None
         )
+        self._graphs: dict[tuple, _StepGraph] = {}
+        #: real steps taken and undone before captures (their kernel
+        #: launches ran on the card and are counted)
+        self.graph_warmups = 0
 
     # -------------------------------------------------------------- dtype
 
@@ -269,6 +327,31 @@ class Trainer:
                torch.optim.Adam(params, lr=c.learning_rate))
         return TrainState(step=0, model=self.model, optimizer=opt)
 
+    def _optimizer_step(self, state: TrainState) -> None:
+        """The optimizer's update at the schedule's learning rate."""
+        lr = self.learning_rate(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+
+    def _update_scalars(self, state: TrainState, k: int) -> torch.Tensor:
+        """What torch's Adam computes on the host for each of the next k
+        steps, in double as it does, and hands its kernels as float32: a
+        (k, 3) float32 tensor of (-lr / (1 - beta1^t), sqrt(1 - beta2^t),
+        AdamW's decay 1 - lr * weight_decay)."""
+        opt = state.optimizer
+        group = opt.param_groups[0]
+        beta1, beta2 = group["betas"]
+        first = next(p for p in group["params"] if p in opt.state)
+        count = float(opt.state[first]["step"])
+        rows = []
+        for i in range(k):
+            lr, t = self.learning_rate(state.step + i), count + i + 1
+            rows.append(((lr / (1 - beta1 ** t)) * -1,
+                         (1 - beta2 ** t) ** 0.5,
+                         1 - lr * group["weight_decay"]))
+        return torch.tensor(rows, dtype=torch.float32)
+
     # --------------------------------------------------------------- steps
 
     def _place(self, batch):
@@ -299,6 +382,14 @@ class Trainer:
         """One optimizer step on batch (x, y) — host arrays or tensors —
         with grad_accum_steps microbatches. Returns the state and its
         metrics (0-dim tensors on the device: loss, accuracy, grad_norm)."""
+        return self._step(state, batch, self._optimizer_step)
+
+    def _step(self, state: TrainState, batch,
+              update: Callable[[TrainState], None]
+              ) -> tuple[TrainState, dict]:
+        """train_step, its optimizer update done by ``update(state)`` (a
+        CUDA graph's reads its scalars from device tensors). Nothing in it
+        waits for the device, so a graph can capture it."""
         c = self.config
         x, y = self._place(batch)
         x = self._cast(x)
@@ -329,17 +420,136 @@ class Trainer:
             torch.stack([torch.linalg.vector_norm(g.float())
                          for g in grads]))
         if c.grad_clip_norm > 0:
-            clip = torch.tensor(c.grad_clip_norm, device=grad_norm.device)
+            clip = torch.full_like(grad_norm, c.grad_clip_norm)
             factor = torch.where(grad_norm < clip, 1.0, clip / grad_norm)
             for g in grads:
                 g.mul_(factor)
-        lr = self.learning_rate(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        update(state)
         state.step += 1
         return state, {"loss": loss_sum / n_acc, "accuracy": acc_sum / n_acc,
                        "grad_norm": grad_norm}
+
+    # -------------------------------------------------------- fused steps
+
+    def train_steps_fused(self, state: TrainState, batch,
+                          n: int) -> tuple[TrainState, dict]:
+        """n optimizer steps on one constant batch; the last step's metrics.
+        On the card one replay of the n-step CUDA graph (captured at first
+        use, or by ``compile_fused``); on the CPU n ``train_step``s."""
+        if self.device.type != "cuda":
+            return self._eager_steps(state, [batch] * n)
+        return self._replay(state, batch, n, scanned=False)
+
+    def train_chunk(self, state: TrainState, stacked,
+                    k: int) -> tuple[TrainState, dict]:
+        """k optimizer steps over a host-stacked chunk (xs (k, B, ...), ys
+        (k, B, ...)), step i on slice i; the last step's metrics. On the
+        card one replay of the chunk's CUDA graph; on the CPU k
+        ``train_step``s in order."""
+        if self.device.type != "cuda":
+            return self._eager_steps(
+                state, [tuple(a[i] for a in stacked) for i in range(k)])
+        return self._replay(state, stacked, k, scanned=True)
+
+    def compile_fused(self, state: TrainState, batch, n: int):
+        """Prepare the n-step program of ``train_steps_fused`` WITHOUT
+        taking a step: on the card, the warm-up (undone) and the capture of
+        its CUDA graph. Returns (program, placed_batch): ``program(state,
+        placed_batch)`` runs the n steps; on the card placed_batch is the
+        graph's static input buffers, already holding the batch."""
+        if self.device.type == "cuda":
+            graph = self._graph(state, batch, n, scanned=False)
+            graph.upload(batch)
+            placed = graph.inputs
+        else:
+            placed = self._place(batch)
+
+        def program(st: TrainState, b):
+            return self.train_steps_fused(st, b, n)
+
+        return program, placed
+
+    def _eager_steps(self, state: TrainState, batches_) -> tuple:
+        m: dict = {}
+        for b in batches_:
+            state, m = self.train_step(state, b)
+        return state, m
+
+    def _replay(self, state: TrainState, batch, k: int, scanned: bool):
+        graph = self._graph(state, batch, k, scanned)
+        graph.upload(batch)
+        graph.scalars.copy_(self._update_scalars(state, k))
+        graph.graph.replay()
+        add_launches(graph.launches)
+        opt = state.optimizer
+        torch._foreach_add_([opt.state[p]["step"] for p in graph.params],
+                            float(k))
+        state.step += k
+        return state, {name: v.clone() for name, v in graph.metrics.items()}
+
+    def _graph(self, state: TrainState, batch, k: int,
+               scanned: bool) -> "_StepGraph":
+        """The CUDA graph of k steps for this state and batch layout,
+        captured now if there is none yet (or the state's tensors were
+        replaced since)."""
+        xs = tuple(torch.as_tensor(a) for a in batch)
+        key = (k, scanned, tuple((tuple(t.shape), t.dtype) for t in xs))
+        graph = self._graphs.get(key)
+        if (graph is None or graph.state is not state
+                or graph.generation != state.generation):
+            self._graphs.pop(key, None)
+            graph = self._capture(state, xs, k, scanned)
+            self._graphs[key] = graph
+        return graph
+
+    def _capture(self, state: TrainState, sample, k: int,
+                 scanned: bool) -> "_StepGraph":
+        rate = getattr(getattr(self.model, "cfg", None), "dropout_rate", 0.0)
+        if rate and self._accepts_generator:
+            raise NotImplementedError(
+                f"fused_steps > 1 on the card with dropout_rate {rate}: a "
+                "CUDA graph would replay one step's dropout masks (ROADMAP "
+                "Queue A item 3)")
+        opt = state.optimizer
+        _check_adam(opt)
+        dev = self.device
+        inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                       for t in sample)
+        for buf, t in zip(inputs, sample):
+            buf.copy_(t)
+
+        def step_batch(i):
+            return tuple(b[i] for b in inputs) if scanned else inputs
+
+        snap = _snapshot(state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # makes Adam's state, among others
+            for i in range(GRAPH_WARMUP_STEPS):
+                self._step(state, step_batch(i % k), self._optimizer_step)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph_warmups += GRAPH_WARMUP_STEPS
+        _restore(state, snap)
+        scalars = self._update_scalars(state, k).to(dev)
+        opt.zero_grad(set_to_none=True)  # grads from the graph's pool
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        step0 = state.step
+        try:
+            with torch.cuda.graph(graph):
+                for i in range(k):
+                    state, m = self._step(
+                        state, step_batch(i),
+                        lambda st, i=i: _adam_update(st.optimizer,
+                                                     scalars[i]))
+        finally:
+            state.step = step0  # the capture ran no step
+            captured = launches_since(before)
+            add_launches(captured, -1)  # they run at each replay
+        params = [p for g in opt.param_groups for p in g["params"]
+                  if p.grad is not None]
+        return _StepGraph(graph, inputs, scalars, params, m, captured,
+                          state, state.generation)
 
     # ---------------------------------------------------------------- eval
 
@@ -371,6 +581,45 @@ class Trainer:
         return {"loss": tot_loss / max(count, 1),
                 "accuracy": correct / max(count, 1)}
 
+    # ---------------------------------------------------------- warm start
+
+    def warm_start(self, sample_x, sample_y, cache_dir: str = "",
+                   fused_k: int = 1, state: TrainState | None = None) -> dict:
+        """Make the step's programs exist before the first step, from the
+        restart-warm cache (the JAX trainer's ``warm_start``).
+
+        On the card: every kernel library missing from the cache dir is
+        built into it (one nvcc a source) and every library this process
+        has not loaded is loaded from it; with fused_k > 1 and a state, the
+        chunk's CUDA graph is captured over ``sample`` stacked fused_k
+        times. Returns the attribution fit stamps on its train.compile
+        span: the nvcc builds run, the libraries loaded, the seconds and
+        the graph captured; ``{"enabled": False}`` when no cache dir
+        resolves."""
+        cache_dir = compile_cache.cache_dir_from_env(
+            cache_dir or self.config.compile_cache_dir)
+        if not cache_dir:
+            return {"enabled": False}
+        t0 = time.perf_counter()
+        before = compile_cache.compile_counts()
+        loaded: list[str] = []
+        info: dict = {"enabled": True, "cache_dir": cache_dir}
+        if self.device.type == "cuda":
+            from kubeflow_tpu_torch.kernels.build import load_all
+
+            loaded = load_all(cache_dir)
+            if fused_k > 1 and state is not None:
+                stacked = tuple(np.stack([np.asarray(a)] * fused_k)
+                                for a in (sample_x, sample_y))
+                self._graph(state, stacked, fused_k, scanned=True)
+                info["graph"] = f"train_chunk_{fused_k}"
+        after = compile_cache.compile_counts()
+        info.update(
+            builds=after["nvcc_runs_total"] - before["nvcc_runs_total"],
+            loaded=",".join(loaded),
+            seconds=round(time.perf_counter() - t0, 6))
+        return info
+
     # ----------------------------------------------------------------- fit
 
     def fit(
@@ -380,23 +629,64 @@ class Trainer:
         resume: bool = True,
         on_epoch_end: Callable[[int, dict], None] | None = None,
     ) -> tuple[TrainState, dict]:
-        for env, entry in ((ENV_PROFILE_DIR, "ROADMAP Queue A item 3"),
-                           (ENV_TRACE_DIR, "ROADMAP Queue A item 12")):
-            if os.environ.get(env):
-                raise NotImplementedError(
-                    f"{env} is set: fit's profiler trace and tracing spans "
-                    f"are not ported ({entry})")
+        """Train over ``dataset``; returns the state and the last logged,
+        eval and final metrics. With a profile dir (config, else
+        KFTPU_PROFILE_DIR) the whole fit runs under torch.profiler (CPU
+        activity, and CUDA on the card) and its Chrome trace is written
+        there."""
+        profile_dir = self.config.profile_dir or os.environ.get(
+            ENV_PROFILE_DIR, "")
+        if not profile_dir:
+            return self._fit(dataset, resume, on_epoch_end)
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        try:
+            return self._fit(dataset, resume, on_epoch_end)
+        finally:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                profile_dir, f"fit-{os.getpid()}-{time.time_ns()}"
+                ".pt.trace.json"))
+            metrics_lib.emit(profile_trace_written=1)
+
+    def _fit(self, dataset, resume, on_epoch_end):
         c = self.config
+        cache_dir = compile_cache.cache_dir_from_env(c.compile_cache_dir)
         state = self.init_state()
         event_dir = c.event_dir or os.environ.get(ENV_EVENT_DIR, "")
         events = metrics_lib.TfEventsWriter(event_dir) if event_dir else None
+        # the installed tracer, else one from the pod env contract
+        # (KFTPU_TRACE_DIR); untraced runs get the NOOP tracer
+        tracer = init_worker_from_env(service="trainer")
 
         start_step = 0
         if resume and self.checkpointer is not None:
-            restored = self.checkpointer.restore_latest(state)
+            with tracer.span("checkpoint.restore") as sp:
+                restored = self.checkpointer.restore_latest(state)
+                sp.set_attribute(
+                    "step", restored[0] if restored is not None else -1)
             if restored is not None:
                 start_step, state = restored
                 metrics_lib.emit(step=start_step, resumed=1)
+
+        # restart-warm: with a cache dir, the kernels and the chunk's graph
+        # are made ready now, under their own span, not inside step one
+        if cache_dir:
+            per_epoch = len(dataset.x_train) // c.batch_size
+            with tracer.span("train.compile") as sp:
+                info = self.warm_start(
+                    dataset.x_train[:c.batch_size],
+                    dataset.y_train[:c.batch_size], cache_dir,
+                    fused_k=min(c.fused_steps, max(per_epoch, 1)),
+                    state=state)
+                for k, v in info.items():
+                    sp.set_attribute(k, v)
 
         # preemption contract: on SIGTERM save a checkpoint and return
         # cleanly so the gang restart resumes instead of losing the epoch
@@ -414,7 +704,7 @@ class Trainer:
                 pass
         try:
             return self._fit_loop(dataset, c, state, start_step, events,
-                                  preempted, on_epoch_end)
+                                  preempted, on_epoch_end, tracer)
         finally:
             if prev_handler is not None:
                 try:
@@ -423,12 +713,16 @@ class Trainer:
                     pass
 
     def _fit_loop(self, dataset, c, state, start_step, events, preempted,
-                  on_epoch_end):
+                  on_epoch_end, tracer):
         # liveness contract: one heartbeat per optimizer step through the
         # pod env's KFTPU_HEARTBEAT_FILE (None for standalone runs)
         hb = HeartbeatWriter.from_env()
         if hb is not None:
             hb.beat(step=start_step, phase="fit-start")
+
+        def save_ckpt(step, st, metrics=None):
+            with tracer.span("checkpoint.save", step=step):
+                self.checkpointer.save(step, st, metrics=metrics)
 
         per_epoch = len(dataset.x_train) // c.batch_size
         if per_epoch == 0:
@@ -444,14 +738,16 @@ class Trainer:
         stop = False
         es_best, es_bad = None, 0  # early-stopping plateau tracking
 
-        def after(m) -> bool:
-            """Bookkeeping after one step; True when fit must stop."""
+        def after(took: int, m) -> bool:
+            """Bookkeeping after a dispatch of ``took`` steps; True when fit
+            must stop. Log and checkpoint fire when their cadence boundary
+            falls inside the dispatch."""
             nonlocal global_step, last, stop
-            global_step += 1
+            global_step += took
             if hb is not None:
                 hb.beat(step=global_step)
-            timer.tick(items=c.batch_size, steps=1)
-            if (global_step % c.log_every_steps == 0
+            timer.tick(items=took * c.batch_size, steps=took)
+            if (global_step % c.log_every_steps < took
                     or global_step == total_steps):
                 last = {k: float(v) for k, v in m.items()}
                 metrics_lib.emit(
@@ -464,47 +760,88 @@ class Trainer:
             if preempted["flag"]:
                 # rescue saves carry NO metrics: kept outside the best
                 # ranking, never returned by best_step
-                self.checkpointer.save(global_step, state)
+                save_ckpt(global_step, state)
                 metrics_lib.emit(step=global_step, preempted=1)
                 stop = True
                 return True
             if (self.checkpointer is not None and not c.keep_best_metric
-                    and global_step % c.checkpoint_every_steps == 0):
-                self.checkpointer.save(global_step, state)
+                    and global_step % c.checkpoint_every_steps < took):
+                save_ckpt(global_step, state)
             return False
 
+        def one_step(b) -> bool:
+            nonlocal state
+            with tracer.span("train.step", step=global_step):
+                state, m = self.train_step(state, b)
+            return after(1, m)
+
         while global_step < total_steps:
-            raw = batches(dataset.x_train, dataset.y_train, c.batch_size,
-                          seed=c.seed + epoch)
-            loader = None
-            if c.async_loader:
-                loader = AsyncLoader(
-                    raw, transform=lambda b: to_device(b, self.device),
-                    size=2)
-                batch_src = loader
-            else:
-                batch_src = prefetch_to_device(raw, self.device)
-            try:
-                for bx, by in batch_src:
+            # a chunk never exceeds an epoch; full chunks of exactly k steps
+            # are one dispatch each, the epoch tail and the total_steps
+            # boundary run step by step, so the numbers never depend on the
+            # chunking
+            k = min(c.fused_steps, per_epoch)
+            if k > 1:
+                pending: list = []
+                batch_src = batches(dataset.x_train, dataset.y_train,
+                                    c.batch_size, seed=c.seed + epoch)
+                if tracer.enabled:
+                    batch_src = _traced_data_iter(tracer, batch_src)
+                for b in batch_src:
                     if global_step >= total_steps or stop:
                         break
-                    state, m = self.train_step(state, (bx, by))
-                    if after(m):
+                    if total_steps - global_step >= k:
+                        pending.append(b)
+                        if len(pending) == k:
+                            stacked = tuple(np.stack(z)
+                                            for z in zip(*pending))
+                            pending = []
+                            with tracer.span("train.chunk",
+                                             step=global_step, steps=k):
+                                state, m = self.train_chunk(state, stacked,
+                                                            k)
+                            if after(k, m):
+                                break
+                    elif one_step(b):
                         break
-            finally:
-                # every exit path joins the loader thread
-                if loader is not None:
-                    loader.close()
+                for b in pending:  # an epoch tail smaller than a chunk
+                    if global_step >= total_steps or stop or one_step(b):
+                        break
+            else:
+                raw = batches(dataset.x_train, dataset.y_train, c.batch_size,
+                              seed=c.seed + epoch)
+                loader = None
+                if c.async_loader:
+                    loader = AsyncLoader(
+                        raw, transform=lambda b: to_device(b, self.device),
+                        size=2)
+                    batch_src = loader
+                else:
+                    batch_src = prefetch_to_device(raw, self.device)
+                if tracer.enabled:
+                    batch_src = _traced_data_iter(tracer, batch_src,
+                                                  stats_from=loader)
+                try:
+                    for b in batch_src:
+                        if global_step >= total_steps or stop:
+                            break
+                        if one_step(b):
+                            break
+                finally:
+                    # every exit path joins the loader thread
+                    if loader is not None:
+                        loader.close()
             if stop:
                 return state, {**last, "preempted": 1.0}
             epoch += 1
             if epoch % c.eval_every_epochs == 0:
-                ev = self.evaluate(state, dataset)
+                with tracer.span("train.eval", step=global_step):
+                    ev = self.evaluate(state, dataset)
                 if hb is not None:
                     hb.beat(step=global_step, phase="eval")
                 if self.checkpointer is not None and c.keep_best_metric:
                     # best-mode cadence: metrics only exist at evals
-                    self.checkpointer.save(global_step, state, metrics=ev)
+                    save_ckpt(global_step, state, metrics=ev)
                 metrics_lib.emit(step=global_step,
                                  **{f"eval_{k}": v for k, v in ev.items()})
                 last.update({f"eval_{k}": v for k, v in ev.items()})
@@ -530,10 +867,10 @@ class Trainer:
                                              early_stopped=1)
                             break
 
-        final_eval = self.evaluate(state, dataset)
+        with tracer.span("train.eval", step=global_step, final=True):
+            final_eval = self.evaluate(state, dataset)
         if self.checkpointer is not None:
-            self.checkpointer.save(global_step, state,
-                                   metrics=dict(final_eval))
+            save_ckpt(global_step, state, metrics=dict(final_eval))
         metrics_lib.emit(step=global_step, **{f"final_{k}": v
                                               for k, v in final_eval.items()})
         if events is not None:
@@ -542,3 +879,118 @@ class Trainer:
             events.close()
         return state, {**last, **{f"final_{k}": v
                                   for k, v in final_eval.items()}}
+
+
+@dataclass
+class _StepGraph:
+    """One captured CUDA graph of k optimizer steps, and what it reads and
+    writes besides the parameters and the optimizer's state: the static
+    input buffers, the k steps' update scalars, the last step's metrics,
+    and each kernel's launches in one replay. ``state`` and ``generation``
+    name the tensors it was captured over."""
+
+    graph: Any
+    inputs: tuple
+    scalars: torch.Tensor  # _update_scalars' (k, 3), on the device
+    params: list        # the parameters its optimizer updates update
+    metrics: dict
+    launches: dict
+    state: TrainState
+    generation: int
+
+    def upload(self, batch) -> None:
+        """The batch into the static buffers (a host array through pinned
+        memory)."""
+        for buf, a in zip(self.inputs, batch):
+            if a is buf:
+                continue
+            t = torch.as_tensor(a)
+            if t.device.type == "cpu":
+                t = t.pin_memory()
+            buf.copy_(t, non_blocking=True)
+
+
+def _check_adam(opt) -> None:
+    """_adam_update writes out torch's multi-tensor Adam/AdamW as the
+    Trainer builds it; anything else is refused."""
+    if len(opt.param_groups) != 1:
+        raise ValueError("a CUDA graph of the training step takes one "
+                         "parameter group")
+    for group in opt.param_groups:
+        if (not isinstance(opt, torch.optim.Adam | torch.optim.AdamW)
+                or group.get("fused") or group.get("capturable")
+                or group.get("foreach") is False or group["amsgrad"]
+                or group["maximize"] or group["differentiable"]):
+            raise ValueError(
+                f"a CUDA graph of the training step replays torch's "
+                f"multi-tensor Adam/AdamW update; {type(opt).__name__} "
+                f"with {dict((k, v) for k, v in group.items() if k != 'params')}"
+                " is not it")
+
+
+@torch.no_grad()
+def _adam_update(opt, scalars: torch.Tensor) -> None:
+    """torch's multi-tensor Adam/AdamW update (``torch.optim.adam.
+    _multi_tensor_adam``), op for op, with the scalars it computes on the
+    host for the step read from a tensor a graph can capture: ``scalars``
+    is a row of ``Trainer._update_scalars``. Its last op,
+    ``addcdiv_(p, m, denom, value=-step size)``, computes p + size * (m /
+    denom) with one rounding (a fused multiply-add) on the card; with the
+    step size in a tensor that is ``p.addcmul_(m / denom, size)``, the
+    same fused multiply-add. The step counts are not advanced here: the
+    replay adds k on the host."""
+    for group in opt.param_groups:
+        params = [p for p in group["params"] if p.grad is not None]
+        if not params:
+            continue
+        grads = [p.grad for p in params]
+        states = [opt.state[p] for p in params]
+        m = [st["exp_avg"] for st in states]
+        v = [st["exp_avg_sq"] for st in states]
+        beta1, beta2 = group["betas"]
+        wd = group["weight_decay"]
+        if wd and group.get("decoupled_weight_decay",
+                            isinstance(opt, torch.optim.AdamW)):
+            torch._foreach_mul_(params, scalars[2])
+        elif wd:
+            grads = torch._foreach_add(grads, params, alpha=wd)
+        torch._foreach_lerp_(m, grads, 1 - beta1)
+        torch._foreach_mul_(v, beta2)
+        torch._foreach_addcmul_(v, grads, grads, 1 - beta2)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_div_(denom, scalars[1])
+        torch._foreach_add_(denom, group["eps"])
+        for p, q in zip(params, torch._foreach_div(m, denom)):
+            p.addcmul_(q, scalars[0])
+
+
+def _snapshot(state: TrainState) -> dict:
+    """Copies of everything a step changes: the parameters, the buffers
+    (BatchNorm's averages), the optimizer's state tensors and the step."""
+    with torch.no_grad():
+        return {
+            "step": state.step,
+            "tensors": [(t, t.detach().clone()) for t in (
+                *state.model.parameters(), *state.model.buffers())],
+            "opt": {p: {k: v.clone() for k, v in st.items()
+                        if torch.is_tensor(v)}
+                    for p, st in state.optimizer.state.items()},
+        }
+
+
+def _restore(state: TrainState, snap: dict) -> None:
+    """Undo the steps taken since ``_snapshot``, in place (a graph captures
+    addresses). Optimizer state made by those steps is zeroed: what a fresh
+    Adam holds before its first step."""
+    with torch.no_grad():
+        for t, saved in snap["tensors"]:
+            t.copy_(saved)
+        for p, st in state.optimizer.state.items():
+            saved = snap["opt"].get(p)
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    if saved is None:
+                        v.zero_()
+                    else:
+                        v.copy_(saved[k])
+    state.step = snap["step"]

@@ -14,8 +14,11 @@ from __future__ import annotations
 ENV_TRACE_DIR = "KFTPU_TRACE_DIR"
 #: parent SpanContext carried into a pod ("traceid-spanid")
 ENV_TRACEPARENT = "KFTPU_TRACEPARENT"
-#: torch.profiler trace output dir (the trainer refuses it until ported)
+#: torch.profiler trace output dir of a training fit
 ENV_PROFILE_DIR = "KFTPU_PROFILE_DIR"
+#: restart-warm cache dir that survives gang restarts: the trainer builds
+#: the kernels' libraries into it and loads them from it
+ENV_COMPILE_CACHE_DIR = "KFTPU_COMPILE_CACHE_DIR"
 #: tfevents scalar output dir for TensorBoard
 ENV_EVENT_DIR = "KFTPU_EVENT_DIR"
 #: per-incarnation heartbeat file one worker writes (liveness lease)

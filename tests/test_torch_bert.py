@@ -109,12 +109,17 @@ def test_bf16_logits_within_8_ulps():
     jm = jb.BertForSequenceClassification(
         jb.BertConfig.tiny(dtype=jnp.bfloat16, **TINY), num_classes=3)
     flat = seeded_flat(jm, x)
-    want = np.asarray(jax.jit(jm.apply)(as_params(flat), jnp.asarray(x)))
+    # flax's own rounding, op by op: under jit, XLA:CPU computes bf16 dots
+    # in f32 and drops convert pairs, so its logits move by up to 7 ulps
+    # from the module's definition (the bias added to the rounded product)
+    want = np.asarray(jm.apply(as_params(flat), jnp.asarray(x)))
     model = port(ctor, flat)
     assert {p.dtype for p in model.parameters()} == {torch.float32}
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
-    assert np.abs(got - want).max() <= 8 * 2.0 ** -8 * np.abs(want).max()
+    ulps = np.abs(got - want).max() / (2.0 ** -8 * np.abs(want).max())
+    print(f"bert bf16 logits: {ulps:.2f} ulps")
+    assert ulps <= 8, ulps
 
 
 def test_dense_attention_dropout_by_statistics():

@@ -32,7 +32,8 @@ def test_port_files_exist():
                 "serving/fleet/scaler.py", "utils/envvars.py",
                 "utils/retry.py", "health.py", "models/layers.py",
                 "models/conv.py", "models/resnet.py", "models/mnist.py",
-                "models/bert.py", "models/vit.py", "models/__init__.py"):
+                "models/bert.py", "models/vit.py", "models/__init__.py",
+                "utils/compile_cache.py"):
         assert ROOT / "kubeflow_tpu_torch" / rel in FILES, rel
 
 

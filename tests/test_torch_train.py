@@ -195,10 +195,10 @@ def test_evaluate_matches_jax():
 
 def test_bf16_model_keeps_f32_params_and_matches_jax_bf16():
     """bf16 compute, f32 parameters, as flax. Tolerance: the two
-    frameworks round to bf16 at different places (torch adds a Linear's
-    bias before rounding, flax after; GELU's inner steps), so logits of
-    this 2-layer model differ by up to a few bf16 ulps: max error at most
-    8 ulps of the largest |logit| and mean error at most 1 ulp."""
+    frameworks round to bf16 at different places (GELU's inner steps; under
+    jit XLA:CPU computes bf16 dots in f32), so logits of this 2-layer model
+    differ by up to a few bf16 ulps: max error at most 8 ulps of the
+    largest |logit| and mean error at most 1 ulp."""
     tcfg = tiny("flash", dtype="bfloat16")
     jcfg = jg.GPTConfig.tiny(**{**TINY, "attention": "flash",
                                 "dtype": jnp.bfloat16})
@@ -224,6 +224,8 @@ def test_bf16_model_keeps_f32_params_and_matches_jax_bf16():
     assert got.dtype == torch.float32
     ulp = 2.0 ** -8 * np.abs(want).max()
     err = np.abs(got.numpy() - want)
+    print(f"gpt bf16 logits: {err.max() / ulp:.2f} ulps max, "
+          f"{err.mean() / ulp:.2f} mean")
     assert err.max() <= 8 * ulp and err.mean() <= ulp, (err.max(), ulp)
     # a float32 model's weights cross to it and back without loss
     back = flax_params_from_gpt(model.state_dict(), tcfg)
@@ -334,10 +336,12 @@ def test_corrupt_newest_checkpoint_is_quarantined(tmp_path, capsys):
     assert counts["fallback_restores_total"] == 1
 
 
-def test_keep_best_and_preemption(tmp_path, capsys):
+@pytest.mark.parametrize("fused_steps", [1, 4])
+def test_keep_best_and_preemption(tmp_path, capsys, fused_steps):
     trainer, _, _, _ = run_fit(tmp_path / "best", 20, capsys,
                                keep_best_metric="loss", best_mode="min",
-                               checkpoint_max_to_keep=1)
+                               checkpoint_max_to_keep=1,
+                               fused_steps=fused_steps)
     ck = trainer.checkpointer
     assert ck.all_steps() == [ck.best_step()]
     plain = tt.Trainer(torch_model(tiny()), tt.TrainerConfig(
@@ -345,10 +349,13 @@ def test_keep_best_and_preemption(tmp_path, capsys):
     with pytest.raises(ValueError, match="keep_best_metric"):
         plain.checkpointer.restore_best(plain.init_state())
     # SIGTERM mid-fit: a metric-less rescue save, then a clean return. The
-    # handler fit installed is called as the signal would call it.
+    # handler fit installed is called as the signal would call it. The
+    # flag is read after each dispatch: with fused_steps=4 the signal lands
+    # inside the first chunk and the save on its boundary, step 4.
     ds = td.synthetic_lm_dataset(**DATA)
     trainer = lm_trainer(torch_model(tiny()), steps=20,
-                         checkpoint_dir=str(tmp_path / "pre"))
+                         checkpoint_dir=str(tmp_path / "pre"),
+                         fused_steps=fused_steps)
     real_step = trainer.train_step
 
     def step_then_sigterm(state, batch):
@@ -360,9 +367,11 @@ def test_keep_best_and_preemption(tmp_path, capsys):
     trainer.train_step = step_then_sigterm
     before = signal.getsignal(signal.SIGTERM)
     state, final = trainer.fit(ds)
-    assert final["preempted"] == 1.0 and state.step == 3
-    assert trainer.checkpointer.all_steps() == [3]
-    assert not (tmp_path / "pre" / "3" / "metrics.json").exists()
+    saved = 3 if fused_steps == 1 else 4
+    assert saved % fused_steps == 0
+    assert final["preempted"] == 1.0 and state.step == saved
+    assert trainer.checkpointer.all_steps() == [saved]
+    assert not (tmp_path / "pre" / str(saved) / "metrics.json").exists()
     assert signal.getsignal(signal.SIGTERM) is before
 
 
@@ -378,23 +387,11 @@ def test_fit_heartbeats_and_final_metrics(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("field,value,entry", [
     ("mesh", object(), "item 8"),
-    ("fused_steps", 2, "item 3"),
-    ("compile_cache_dir", "/tmp/cc", "item 3"),
-    ("profile_dir", "/tmp/prof", "item 3"),
     ("data_placement", "process_local", "item 6"),
 ])
 def test_unported_config_refused(field, value, entry):
     with pytest.raises(NotImplementedError, match=entry):
         tt.Trainer(torch_model(tiny()), tt.TrainerConfig(**{field: value}))
-
-
-@pytest.mark.parametrize("env,entry", [("KFTPU_TRACE_DIR", "item 12"),
-                                       ("KFTPU_PROFILE_DIR", "item 3")])
-def test_unported_env_refused(env, entry, monkeypatch, tmp_path):
-    monkeypatch.setenv(env, str(tmp_path))
-    trainer = lm_trainer(torch_model(tiny()), steps=1)
-    with pytest.raises(NotImplementedError, match=entry):
-        trainer.fit(td.synthetic_lm_dataset(**DATA))
 
 
 def test_async_loader_order_and_errors():

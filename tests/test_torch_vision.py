@@ -88,8 +88,7 @@ def test_vit_logits_match_jax(attention, dtype):
     x = images((2, 32, 32, 3), seed=2)
     jcfg = jv.ViTConfig.tiny(attention=attention, dtype=getattr(jnp, dtype),
                              attention_block=8)
-    # lecun-normal scale (1/sqrt(fan-in) is 1/8 at hidden 64)
-    flat = seeded_flat(jv.ViTClassifier(jv.ViTConfig.tiny()), x, std=0.1)
+    flat = seeded_flat(jv.ViTClassifier(jv.ViTConfig.tiny()), x)
     want = np.asarray(jv.ViTClassifier(jcfg).apply(as_params(flat),
                                                    jnp.asarray(x)))
     model = port(tv.ViTClassifier(tv.ViTConfig.tiny(
@@ -102,6 +101,7 @@ def test_vit_logits_match_jax(attention, dtype):
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     else:  # bf16 compute: within 8 bf16 ulps of the largest logit
         ulps = np.abs(got - want).max() / (2.0 ** -8 * np.abs(want).max())
+        print(f"vit bf16 logits: {ulps:.2f} ulps")
         assert ulps <= 8, ulps
 
 
