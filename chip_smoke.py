@@ -123,6 +123,32 @@ Phases, each fatal on failure:
      finite; (c) ViT-B/16 (197 tokens), flash, bf16, batch 32, 5 steps,
      served, logits against the plain path; (d) MnistMLP and MnistCNN on
      synthetic 28x28x1, eval accuracy at least 3x chance, both served
+  11. the predictor's artifacts (run last): (a) int8: GPT-2 small (phase
+     4's f32 weights) written as a float and a quantize=True model dir
+     (the params.npz bytes of both), both served on the card: every int8
+     weight read back within half an int8 step of the float one, 12
+     flash_fwd launches a forward, the logits of 4 x 128 prompts' max
+     relative error and top-1 agreement (printed: the logits of random
+     weights have no margins); then the JAX package's test's setting, an
+     MnistMLP trained one epoch: the int8 dir under 1/2.5 of the float
+     one, the served classes agreeing on >= ART_TOP1 of the test images; (b) AOT: export_predictor of GPT-2
+     small's greedy generate (phase 4's 4 x 128 prompts, 32 new tokens) and
+     of the BERT-base classifier (bf16, 16 x 128) with compile_cache a
+     fresh dir (export seconds, artifact bytes), then a new process with
+     KFT_COMPILE_CACHE set serves both artifacts: nvcc runs 0, its
+     libflash_fwd mapped from the cache dir, 12 launches a prefill inside
+     the exported program, tokens equal to the eager predictor's, BERT's
+     logits within BF16_ULPS of the eager path's, cold start of the
+     artifact against a rebuild; (c) python -m
+     kubeflow_tpu_torch.serving.server --storage-uri pvc://... (
+     KFTPU_PVC_ROOT and KFT_COMPILE_CACHE set) --aot --max-batch-size 8 as
+     a subprocess: 8 concurrent one-row BERT requests coalesce into fewer
+     batches, 12 launches a coalesced forward (its /metrics counters), the
+     logits (b)'s; a continuous GPT-2 small loaded through the repository
+     API shows the kfserving_engine_* gauges on /metrics until unloaded;
+     (d) a pod spawned twice over one fresh compile_cache_dir: the first
+     builds the libraries, the respawn runs nvcc 0 times and maps them
+     from the dir
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Every number is printed beside the card's
@@ -197,6 +223,10 @@ FAM_RESNET_BATCH, FAM_RESNET_STEPS, FAM_RESNET_IMAGES = 128, 10, 256
 FAM_BERT_BATCH, FAM_BERT_LEN, FAM_BERT_STEPS, FAM_MLM_STEPS = 16, 128, 10, 3
 FAM_VIT_BATCH, FAM_VIT_STEPS = 32, 5
 FAM_MNIST_TRAIN, FAM_MNIST_TEST = 2048, 512
+# phase 11: the server subprocess's one-row BERT requests, its batcher's
+# size and wait, and a trained classifier's least top-1 agreement between
+# its int8 and float artifacts (the JAX package's test's limit)
+ART_REQUESTS, ART_MAX_BATCH, ART_BATCH_WAIT_MS, ART_TOP1 = 8, 8, 50.0, 0.95
 # idle host time (s) on either side of a profiled window, doubled on each
 # retry of a trace that lost activities (device_events)
 PROFILE_PAD = 0.05
@@ -542,6 +572,26 @@ def sdpa_causal_call(q, k, v):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
 
+def op_vs_wrapper(q, k, v, bias, causal, window, iters, wrapper) -> dict:
+    """The loop time a call of the ctypes wrapper, of the custom op
+    kftpu::flash_fwd that wraps it (one dispatcher hop more) and of
+    ring_attention.flash_forward (the op behind the models' checks), each
+    the mean of two reads taken in turns."""
+    import torch
+
+    from kubeflow_tpu_torch.parallel.ring_attention import flash_forward
+
+    op = functools.partial(torch.ops.kftpu.flash_fwd, q, k, v, bias, causal,
+                           window, 128)
+    forward = functools.partial(flash_forward, q, k, v, bias, causal=causal,
+                                window=window)
+    reads = [time_ms(f, iters) for f in (wrapper, op, forward, forward, op,
+                                         wrapper)]
+    return {"wrapper_ms": (reads[0] + reads[5]) / 2,
+            "op_ms": (reads[1] + reads[4]) / 2,
+            "forward_ms": (reads[2] + reads[3]) / 2}
+
+
 def phase_kernels(peaks, card: str, routes: dict) -> dict:
     """Kernel vs plain version on the card. Returns the record of the
     training path's shape (bf16). `routes` is tensor_core_report's."""
@@ -609,6 +659,16 @@ def phase_kernels(peaks, card: str, routes: dict) -> dict:
         if pad == 0 and window == 0 and causal:
             call = sdpa_causal_call(q, k, v)
             lib_c, lib_c_dev = time_ms(call, iters), device_ms(call, iters)
+        op = None
+        if dt == "bfloat16" and (tag == "train" or (tag, l) == ("bert", 128)):
+            op = op_vs_wrapper(q, k, v, bias, causal, window, iters, kernel)
+            print(f"  {tag:8s} B={b} L={l:5d} loop ms a call, taken in "
+                  f"turns (wrapper, op, op, wrapper): the ctypes wrapper "
+                  f"{op['wrapper_ms']:.5f}, the custom op "
+                  f"torch.ops.kftpu.flash_fwd {op['op_ms']:.5f}, "
+                  f"ring_attention.flash_forward (the models' call) "
+                  f"{op['forward_ms']:.5f}; device {dev:.5f} [{card}]",
+                  flush=True)
         bound_ms, bound_by = attention_bound(b, h, l, l, d, dt, causal,
                                              window, peaks)
         lib_s, lib_dev_s, causal_s, causal_dev_s = (
@@ -633,6 +693,7 @@ def phase_kernels(peaks, card: str, routes: dict) -> dict:
                 f"L={l} {form} window={window} {dt}: O {err_o}, lse {err_l}, "
                 f"worst block {tile}, bit-equal over two calls {same}")
         records[(tag, l, window, dt)] = {
+            **(op or {}),
             "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
             "device_ms": dev, "library_device_ms": lib_dev,
@@ -3476,6 +3537,536 @@ def phase_pods(card: str, plain: dict, fleet_ticks: dict) -> int:
     return launches
 
 
+# ------------------------------------------------------------- phase 11
+
+
+def phase_artifacts(card: str) -> int:
+    """Phase 11: the predictor's artifacts on the card, (a)-(d) of the
+    module docstring. Returns flash_fwd's launches over the served runs:
+    this process's, the AOT process's and the server subprocess's."""
+    import torch
+
+    from kubeflow_tpu_torch.models.bert import (
+        BertConfig,
+        BertForSequenceClassification,
+    )
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
+    from kubeflow_tpu_torch.serving.model import save_predictor
+    from kubeflow_tpu_torch.train.data import synthetic_text_dataset
+
+    t_phase = time.perf_counter()
+    gcfg = GPTConfig.small(attention="flash", dtype="float32")
+    gpt_sd = GPTLM(gcfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED)).state_dict()  # phase 4's
+    prompts = np.random.RandomState(SEED + 61).randint(
+        1, gcfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    bcfg = BertConfig.base(attention="flash", dtype="bfloat16",
+                           dropout_rate=0.0)
+    bert_sd = BertForSequenceClassification(bcfg, 2, device="cuda"
+                                            ).init_weights(
+        torch.Generator().manual_seed(SEED + 11)).state_dict()
+    x_bert = synthetic_text_dataset(
+        n_train=FAM_BERT_BATCH, n_test=FAM_BERT_BATCH, seq_len=FAM_BERT_LEN,
+        vocab_size=bcfg.vocab_size, num_classes=2, seed=SEED + 11).x_test
+    gkw = {"size": "small", "config": {"attention": "flash",
+                                       "dtype": "float32"}}
+    bkw = {"size": "base", "num_classes": 2, "config": {
+        "attention": "flash", "dtype": "bfloat16", "dropout_rate": 0.0}}
+    n_layers = gcfg.num_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = art_int8(tmp, gpt_sd, prompts, gkw, n_layers, card)
+        gdir = save_predictor(f"{tmp}/gpt-aot", "gpt-lm", gpt_sd, prompts,
+                              generate={"max_new_tokens": GEN_NEW,
+                                        "temperature": 0.0}, **gkw)
+        bdir = save_predictor(f"{tmp}/bert-aot", "bert-classifier", bert_sd,
+                              x_bert, **bkw)
+        eager, n = art_eager(gdir, bdir, prompts, x_bert, n_layers, card)
+        launches += n
+        cache = f"{tmp}/kernel-cache"
+        launches += art_aot(tmp, gdir, bdir, cache, prompts, x_bert, eager,
+                            n_layers, card)
+        launches += art_server(tmp, gpt_sd, bert_sd, bkw, prompts, x_bert,
+                               eager, cache, n_layers, card)
+        art_pods(tmp, gpt_sd, prompts, card)
+    del gpt_sd, bert_sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f}s; flash_fwd "
+          f"launches over its served runs {launches} [{card}]", flush=True)
+    return launches
+
+
+def art_int8(tmp: str, sd, prompts, kw: dict, n_layers: int,
+             card: str) -> int:
+    """(a) int8 artifacts. GPT-2 small (phase 4's seeded random weights):
+    the float and the int8 dir both served, the int8 weights read back
+    within half an int8 step of the float ones, the logits' relative error
+    and top-1 agreement printed (random logits have no margins: no limit
+    on them); MnistMLP trained one epoch, the JAX package's test's model:
+    the int8 dir under 1/2.5 of the float one and its served classes
+    agreeing with the float dir's on >= ART_TOP1 of the test images."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kubeflow_tpu_torch.models.mnist import MnistMLP
+    from kubeflow_tpu_torch.serving.model import (
+        CONFIG_FILE,
+        PARAMS_FILE,
+        TorchModel,
+        read_params,
+        save_predictor,
+    )
+    from kubeflow_tpu_torch.train.data import synthetic_image_dataset
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    def served_pair(name, weights, x, example, **family_kw):
+        """The float and int8 dirs of `weights`, each served: (outputs,
+        params.npz bytes, load seconds, dirs)."""
+        out, size, load_s, dirs = {}, {}, {}, {}
+        for tag, q in (("float", False), ("int8", True)):
+            dirs[tag] = save_predictor(f"{tmp}/{name}-{tag}", name, weights,
+                                       example, quantize=q, **family_kw)
+            size[tag] = os.path.getsize(dirs[tag] / PARAMS_FILE)
+            t0 = time.perf_counter()
+            m = TorchModel(tag, dirs[tag], device="cuda")
+            m.load()
+            load_s[tag] = time.perf_counter() - t0
+            zero_launches()
+            out[tag] = m.predict(x)
+            out[f"{tag}_launches"] = flash_launches()
+            del m
+        return out, size, load_s, dirs
+
+    # ---- GPT-2 small at full width
+    out, size, load_s, dirs = served_pair("gpt-lm", sd, prompts, prompts,
+                                          **kw)
+    launches = out["float_launches"] + out["int8_launches"]
+    f, q = out["float"], out["int8"]
+    rel = float(np.abs(q - f).max() / np.abs(f).max())
+    top1 = float((f.argmax(-1) == q.argmax(-1)).mean())
+    float_w, int8_w = (read_params(d, json.loads(
+        (d / CONFIG_FILE).read_text())) for d in dirs.values())
+    worst, n_quantized = 0.0, 0
+    for k, w in float_w.items():
+        err = float(np.abs(int8_w[k] - w).max())
+        if err:  # a quantized leaf: half a step of its scale at most
+            n_quantized += 1
+            worst = max(worst, err / (np.abs(w).max() / 127.0 / 2))
+    print(f"phase 11 (a) int8, GPT-2 small (f32, seeded random weights): "
+          f"params.npz {size['float']} bytes (f32), {size['int8']} bytes "
+          f"(int8, {size['float'] / size['int8']:.2f}x smaller); load and "
+          f"warm-up {load_s['float']:.2f}s / {load_s['int8']:.2f}s; "
+          f"{n_quantized} leaves quantized, each read back within "
+          f"{worst:.4f} half-steps of the float one (limit 1); logits of "
+          f"{prompts.shape} prompts: max |int8 - f32| / max |f32| "
+          f"{rel:.3e}, top-1 agreement {top1:.4f} over "
+          f"{f.shape[0] * f.shape[1]} positions (near-ties of random "
+          f"logits: no limit); flash_fwd launches {out['float_launches']} "
+          f"+ {out['int8_launches']} [{card}]", flush=True)
+    if (not np.isfinite(q).all() or q.shape != f.shape
+            or worst > 1 + 1e-5 or n_quantized != 2 + 6 * n_layers
+            or out["float_launches"] != n_layers
+            or out["int8_launches"] != n_layers):
+        raise AssertionError(f"GPT-2 int8 artifact: {worst} half-steps, "
+                             f"{n_quantized} leaves, launches {launches}")
+    del out, f, q, float_w, int8_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- MnistMLP, trained one epoch (the JAX package's test's setting)
+    ds = synthetic_image_dataset(n_train=FAM_MNIST_TRAIN,
+                                 n_test=FAM_MNIST_TEST, shape=(28, 28, 1),
+                                 num_classes=10, seed=SEED + 3)
+    mlp = MnistMLP(784, device="cuda").init_weights(
+        torch.Generator().manual_seed(SEED + 3))
+    trainer = Trainer(mlp, TrainerConfig(batch_size=128, epochs=1,
+                                         learning_rate=1e-3, seed=SEED))
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, final = trainer.fit(ds)
+    out, size, _, _ = served_pair("mnist-mlp", mlp.state_dict(), ds.x_test,
+                                  ds.x_test[:4])
+    agree = float((out["float"].argmax(-1) == out["int8"].argmax(-1)).mean())
+    print(f"  (a) int8, MnistMLP trained one epoch (eval accuracy "
+          f"{final['final_accuracy']:.4f}): params.npz {size['float']} "
+          f"bytes (f32), {size['int8']} bytes (int8, "
+          f"{size['float'] / size['int8']:.2f}x smaller, limit 2.5x); "
+          f"served classes of the {len(ds.x_test)} test images agree on "
+          f"{agree:.4f} (limit {ART_TOP1}) [{card}]", flush=True)
+    if agree < ART_TOP1 or size["int8"] * 2.5 >= size["float"]:
+        raise AssertionError(f"MnistMLP int8 artifact: agreement {agree}, "
+                             f"bytes {size}")
+    return launches
+
+
+def art_eager(gdir, bdir, prompts, x_bert, n_layers: int,
+              card: str) -> tuple[dict, int]:
+    """The eager predictors of (b)'s two dirs, before any artifact is
+    written: GPT-2 small's greedy tokens and BERT-base's logits, the
+    reference the artifacts must give."""
+    from kubeflow_tpu_torch.serving.model import TorchModel
+
+    out = {}
+    zero_launches()
+    for name, d, x in (("gpt", gdir, prompts), ("bert", bdir, x_bert)):
+        m = TorchModel(name, d, device="cuda")
+        m.load()
+        out[name] = m.predict(x)
+        del m
+    launches = flash_launches()
+    if launches != 4 * n_layers:  # a warm-up and a request each
+        raise AssertionError(f"eager predictors launched flash_fwd "
+                             f"{launches} times, expected {4 * n_layers}")
+    return out, launches
+
+
+def art_aot(tmp: str, gdir, bdir, cache: str, prompts, x_bert, eager: dict,
+            n_layers: int, card: str) -> int:
+    """(b) export both predictors with a fresh compile cache, then serve the
+    artifacts from a new process pointed at the cache."""
+    from kubeflow_tpu_torch.kernels.build import sources
+    from kubeflow_tpu_torch.serving.aot import AOT_FILE, export_predictor
+    from kubeflow_tpu_torch.utils.compile_cache import compile_counts
+    from kubeflow_tpu_torch.utils.envvars import ENV_SERVING_COMPILE_CACHE
+
+    nvcc0 = compile_counts()["nvcc_runs_total"]
+    took = {}
+    for name, d in (("gpt", gdir), ("bert", bdir)):
+        t0 = time.perf_counter()
+        export_predictor(d, compile_cache=cache, device="cuda")
+        took[name] = time.perf_counter() - t0
+    nvcc = compile_counts()["nvcc_runs_total"] - nvcc0
+    print(f"phase 11 (b) AOT: export_predictor with a fresh compile cache: "
+          f"GPT-2 small greedy generate ({prompts.shape} prompts, {GEN_NEW} "
+          f"new tokens, f32) {took['gpt']:.1f}s, artifact "
+          f"{os.path.getsize(gdir / AOT_FILE)} bytes; BERT-base classifier "
+          f"({x_bert.shape}, bf16) {took['bert']:.1f}s, artifact "
+          f"{os.path.getsize(bdir / AOT_FILE)} bytes; nvcc runs building "
+          f"the cache {nvcc} [{card}]", flush=True)
+    np.save(f"{tmp}/prompts.npy", prompts)
+    np.save(f"{tmp}/x_bert.npy", x_bert)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.aot_child({str(gdir)!r}, "
+         f"{str(bdir)!r}, {tmp!r})"],
+        cwd=here, env={**os.environ, ENV_SERVING_COMPILE_CACHE: cache},
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the AOT process failed: {proc.stderr[-4000:]}")
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    tokens = np.asarray(run["tokens"])
+    logits = np.asarray(run["logits"], np.float32)
+    ulps = bf16_ulps(logits, eager["bert"])
+    same = tokens.shape == eager["gpt"].shape and bool(
+        (tokens == eager["gpt"]).all())
+    mapped = run["maps"]
+    from_cache = bool(mapped) and all(
+        p.startswith(os.path.realpath(cache)) for p in mapped)
+    print(f"  (b) a new process with {ENV_SERVING_COMPILE_CACHE} set: nvcc "
+          f"runs {run['counts']['nvcc_runs_total']}, libraries loaded "
+          f"{run['counts']['libraries_loaded_total']} in "
+          f"{run['lib_s']:.2f}s; libflash_fwd mapped from {mapped} (the "
+          f"cache dir: {from_cache}); cold start, artifact (load + warm-up "
+          f"run) against a rebuild (module, params, warm-up) with the "
+          f"libraries loaded: GPT-2 generate {run['gpt_load_s']:.2f}s vs "
+          f"{run['gpt_rebuild_s']:.2f}s, BERT {run['bert_load_s']:.2f}s vs "
+          f"{run['bert_rebuild_s']:.2f}s; flash_fwd launches: warm-up "
+          f"{run['gpt_warm']} + generate request {run['gpt_req']} (one "
+          f"prefill), BERT warm-up {run['bert_warm']} + request "
+          f"{run['bert_req']}; generate request {run['gpt_req_s'] * 1e3:.1f}"
+          f" ms (eager {run['gpt_eager_req_s'] * 1e3:.1f} ms); tokens equal "
+          f"to the eager predictor's: {same}; BERT logits vs eager "
+          f"{ulps:.2f} bf16 ulps (limit {BF16_ULPS}); the process took "
+          f"{wall:.1f}s with the interpreter [{card}]", flush=True)
+    if (run["counts"]["nvcc_runs_total"] != 0 or nvcc != len(sources())
+            or run["counts"]["libraries_loaded_total"] != len(sources())
+            or not from_cache or not same or ulps > BF16_ULPS
+            or run["gpt_req"] != n_layers or run["bert_req"] != n_layers
+            or run["gpt_warm"] != n_layers or run["bert_warm"] != n_layers):
+        raise AssertionError(f"AOT artifacts: {run}")
+    return sum(run[k] for k in ("gpt_warm", "gpt_req", "bert_warm",
+                                "bert_req"))
+
+
+def aot_child(gdir: str, bdir: str, tmp: str) -> None:
+    """(b)'s serving process: the kernel libraries from the cache the
+    environment names, both artifacts served (no model module built), the
+    rebuilt predictors timed after them. Its last line: the counts, maps,
+    launches, times and outputs as JSON."""
+    import torch
+
+    from kubeflow_tpu_torch.serving.aot import _compile_cache_on
+    from kubeflow_tpu_torch.serving.model import TorchModel, _load_predict_fn
+    from kubeflow_tpu_torch.utils.compile_cache import compile_counts
+    from kubeflow_tpu_torch.utils.envvars import ENV_SERVING_COMPILE_CACHE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    t0 = time.perf_counter()
+    _compile_cache_on(os.environ[ENV_SERVING_COMPILE_CACHE])
+    out["lib_s"] = time.perf_counter() - t0
+    inputs = {"gpt": np.load(f"{tmp}/prompts.npy"),
+              "bert": np.load(f"{tmp}/x_bert.npy")}
+    for name, d in (("gpt", gdir), ("bert", bdir)):
+        zero_launches()
+        t0 = time.perf_counter()
+        m = TorchModel(name, d, device="cuda")
+        m.load()
+        out[f"{name}_load_s"] = time.perf_counter() - t0
+        if m._aot_batch is None:
+            raise AssertionError(f"{d}: the artifact was not taken")
+        out[f"{name}_warm"] = flash_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = m.predict(inputs[name])
+        out[f"{name}_req_s"] = time.perf_counter() - t0
+        out[f"{name}_req"] = flash_launches() - out[f"{name}_warm"]
+        out["tokens" if name == "gpt" else "logits"] = got.tolist()
+        del m
+    out["counts"] = compile_counts()
+    with open("/proc/self/maps") as fh:
+        out["maps"] = sorted({line.split()[-1] for line in fh
+                              if "libflash_fwd" in line})
+    for name, d in (("gpt", gdir), ("bert", bdir)):
+        t0 = time.perf_counter()
+        fn, config, example = _load_predict_fn(d, "cuda")
+        fn(torch.as_tensor(example, device="cuda"))
+        torch.cuda.synchronize()
+        out[f"{name}_rebuild_s"] = time.perf_counter() - t0
+        if name == "gpt":
+            x = torch.as_tensor(inputs["gpt"], device="cuda")
+            t0 = time.perf_counter()
+            fn(x).cpu()
+            out["gpt_eager_req_s"] = time.perf_counter() - t0
+        del fn
+    print(json.dumps(out))
+
+
+class _Lines:
+    """A subprocess's merged output, drained by a thread into a list (a
+    full pipe would stall the child), with a wait for a matching line."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.lines: list[str] = []
+        self._thread = threading.Thread(target=self._drain, args=(proc,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _drain(self, proc) -> None:
+        for line in proc.stdout:
+            self.lines.append(line.rstrip())
+
+    def wait_for(self, pattern: str, timeout_s: float):
+        import re
+
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            for line in list(self.lines):
+                found = re.search(pattern, line)
+                if found:
+                    return found
+            if not self._thread.is_alive():
+                break
+            time.sleep(0.2)
+        raise AssertionError(f"no line matching {pattern!r}: "
+                             f"{self.lines[-40:]}")
+
+
+def metric_values(url: str, name: str) -> dict:
+    """{label set: value} of one metric on a server's /metrics."""
+    import re
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        rf"^{name}\{{([^}}]*)\}} (\S+)$", text, re.MULTILINE)}
+
+
+def art_server(tmp: str, gpt_sd, bert_sd, bkw: dict, prompts, x_bert,
+               eager: dict, cache: str, n_layers: int, card: str) -> int:
+    """(c) the model server as a subprocess: a BERT-base dir pulled from a
+    PVC, exported at load (--aot), micro-batched; a continuous GPT-2 small
+    loaded and unloaded through the repository API."""
+    import threading
+
+    from kubeflow_tpu_torch.serving.aot import AOT_META
+    from kubeflow_tpu_torch.serving.model import save_predictor
+    from kubeflow_tpu_torch.utils.envvars import (
+        ENV_PVC_ROOT,
+        ENV_SERVING_COMPILE_CACHE,
+    )
+
+    pvc = f"{tmp}/pvc"
+    save_predictor(f"{pvc}/vol/bert", "bert-classifier", bert_sd, x_bert,
+                   **bkw)
+    cont_new = 8
+    save_predictor(f"{pvc}/vol/gpt-cont", "gpt-lm", gpt_sd, prompts[:1],
+                   generate={"max_new_tokens": cont_new, "continuous": True,
+                             "continuous_rows": 4},
+                   size="small", config={"attention": "flash",
+                                         "dtype": "bfloat16"})
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, ENV_PVC_ROOT: pvc, ENV_SERVING_COMPILE_CACHE: cache}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.serving.server",
+         "--model-name", "bert", "--storage-uri", "pvc://vol/bert",
+         "--model-dir", f"{tmp}/served", "--repository-dir", f"{tmp}/repo",
+         "--device", "cuda", "--aot", "--max-batch-size", str(ART_MAX_BATCH),
+         "--batch-max-latency-ms", str(ART_BATCH_WAIT_MS), "--port", "0"],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        out = _Lines(proc)
+        url = out.wait_for(r"server ready url=(\S+)", 900).group(1)
+        up = time.perf_counter() - t0
+        meta = json.loads(open(f"{tmp}/served/bert/{AOT_META}").read())
+        with open(f"/proc/{proc.pid}/maps") as fh:
+            mapped = sorted({line.split()[-1] for line in fh
+                             if "libflash_fwd" in line})
+        before = (metric_values(url, "kfserving_batcher_batches_total"),
+                  metric_values(url, "kftpu_kernel_launches_total"))
+        answers = [None] * ART_REQUESTS
+
+        def one(i):
+            answers[i] = post(f"{url}/v1/models/bert:predict",
+                              {"instances": x_bert[i:i + 1].tolist()})
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(ART_REQUESTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t1
+        after = (metric_values(url, "kfserving_batcher_batches_total"),
+                 metric_values(url, "kftpu_kernel_launches_total"))
+        requests = metric_values(url, "kfserving_batcher_requests_total")
+        key, kern = 'model="bert"', 'kernel="flash_fwd"'
+        batches = after[0][key] - before[0][key]
+        launches = int(after[1][kern] - before[1][kern])
+        codes = [a[0] for a in answers]
+        got = np.concatenate([np.asarray(a[1]["logits"], np.float32)
+                              for a in answers])
+        ulps = bf16_ulps(got, eager["bert"][:ART_REQUESTS])
+        print(f"phase 11 (c) python -m kubeflow_tpu_torch.serving.server "
+              f"--storage-uri pvc://vol/bert --aot --max-batch-size "
+              f"{ART_MAX_BATCH}: ready in {up:.1f}s (pull, export, load; "
+              f"aot.json platforms {meta['platforms']}), libflash_fwd "
+              f"mapped from {mapped}; {ART_REQUESTS} concurrent one-row v1 "
+              f"requests in {wall * 1e3:.1f} ms: codes {codes}, "
+              f"{int(batches)} coalesced forwards for "
+              f"{int(requests[key])} requests, flash_fwd launches "
+              f"{launches}; logits vs (b)'s eager ones {ulps:.2f} bf16 ulps "
+              f"[{card}]", flush=True)
+        if (codes != [200] * ART_REQUESTS or not 0 < batches < ART_REQUESTS
+                or launches != n_layers * batches or ulps > BF16_ULPS
+                or meta["platforms"] != ["cuda"]
+                or not all(p.startswith(os.path.realpath(cache))
+                           for p in mapped) or not mapped):
+            raise AssertionError(f"served BERT: codes {codes}, batches "
+                                 f"{batches}, launches {launches}, ulps "
+                                 f"{ulps}, {meta}, {mapped}")
+        # ---- the repository API: a continuous GPT-2 small
+        code, body, load_wall = post(
+            f"{url}/v2/repository/models/gpt-cont/load",
+            {"storage_uri": "pvc://vol/gpt-cont"})
+        if code != 200:
+            raise AssertionError(f"repository load: {code} {body}")
+        code, body, req_wall = post(f"{url}/v1/models/gpt-cont:predict",
+                                    {"instances": prompts[:1].tolist()})
+        rows = metric_values(url, "kfserving_engine_rows_total")
+        steps = metric_values(url, "kfserving_engine_decode_dispatches_total")
+        code_u, _, _ = post(f"{url}/v2/repository/models/gpt-cont/unload",
+                            {})
+        left = metric_values(url, "kfserving_engine_rows_total")
+        print(f"  (c) repository API: gpt-cont (continuous, bf16) loaded "
+              f"from pvc://vol/gpt-cont in {load_wall:.1f}s; a "
+              f"{prompts[:1].shape} request -> {code} in "
+              f"{req_wall * 1e3:.1f} ms, {len(body['predictions'][0])} "
+              f"tokens; /metrics engine gauges rows_total {rows}, "
+              f"decode_dispatches_total {steps}; unload -> {code_u}, gauges "
+              f"left {left} [{card}]", flush=True)
+        if (code != 200 or len(body["predictions"][0]) != cont_new
+                or rows != {'model="gpt-cont"': 4.0}
+                or not steps.get('model="gpt-cont"') or code_u != 200
+                or left):
+            raise AssertionError(f"repository engine: {rows} {steps} {left}")
+        return launches
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def art_pods(tmp: str, sd, prompts, card: str) -> None:
+    """(d) one pod spawned, killed and spawned again over one fresh
+    compile_cache_dir: the first builds the kernel libraries into it, the
+    respawn runs nvcc zero times; both map libflash_fwd from it."""
+    import dataclasses
+    import re
+    from pathlib import Path
+
+    from kubeflow_tpu_torch.convert import flax_params_from_gpt
+    from kubeflow_tpu_torch.kernels.build import sources
+    from kubeflow_tpu_torch.models.gpt import GPTConfig
+    from kubeflow_tpu_torch.serving.fleet import PagedKVPool, spawn_pod
+
+    cfg = GPTConfig.small(attention="flash", dtype="bfloat16")
+    np.savez(f"{tmp}/pod-params.npz", **flax_params_from_gpt(sd, cfg))
+    pod_cache = f"{tmp}/pod-cache"
+    spec = {"model": dataclasses.asdict(cfg), "device": "cuda",
+            "params": f"{tmp}/pod-params.npz", "max_rows": 4,
+            "default_max_new_tokens": 8, "eos_token_id": None, "seed": SEED,
+            "prefill_chunk": 0, "compile_cache_dir": pod_cache,
+            "pool": {"block_size": ENGINE_BLOCK, "capacity_blocks": 64},
+            "warmup_prompts": [prompts[0].tolist()], "warmup_new_tokens": 2}
+    state = f"{tmp}/pods"
+    runs = []
+    for i in range(2):
+        name = f"cached-{i}"
+        c = spawn_pod(name, spec, state,
+                      home_pool=PagedKVPool(ENGINE_BLOCK, 64))
+        try:
+            with open(f"/proc/{c.worker_pid}/maps") as fh:
+                mapped = sorted({line.split()[-1] for line in fh
+                                 if "libflash_fwd" in line})
+        finally:
+            c.kill(timeout_s=5.0)
+            c._kill_process()
+        text = Path(state, f"{name}.stderr.log").read_text()
+        found = re.search(r"ready in ([0-9.]+)s .*compile_counts=(\{.*\})",
+                          text)
+        if found is None:
+            raise AssertionError(f"pod {name} never reported ready: {text}")
+        runs.append((float(found.group(1)), json.loads(found.group(2)),
+                     mapped))
+    for i, (ready, counts, mapped) in enumerate(runs):
+        print(f"phase 11 (d) pod spawn {i + 1} over one compile_cache_dir: "
+              f"ready in {ready:.2f}s, nvcc runs "
+              f"{counts['nvcc_runs_total']}, libraries loaded "
+              f"{counts['libraries_loaded_total']}, libflash_fwd mapped "
+              f"from {mapped} [{card}]", flush=True)
+    n_src = len(sources())
+    real = os.path.realpath(pod_cache)
+    if (runs[0][1]["nvcc_runs_total"] != n_src
+            or runs[1][1]["nvcc_runs_total"] != 0
+            or any(counts["libraries_loaded_total"] != n_src
+                   or not mapped or not all(p.startswith(real)
+                                            for p in mapped)
+                   for _, counts, mapped in runs)):
+        raise AssertionError(f"pods over a compile cache: {runs}")
+
+
 def main() -> int:
     import torch
 
@@ -3523,7 +4114,8 @@ def main() -> int:
     pod_launches = phase_pods(card, plain, fleet_ticks)
     print(f"  pod path: flash_fwd launches {pod_launches} (in the prefill "
           f"pod's process) [{card}]", flush=True)
-    engine_launches += spec_launches + pod_launches
+    artifact_launches = phase_artifacts(card)
+    engine_launches += spec_launches + pod_launches + artifact_launches
     from kubeflow_tpu_torch.models.gpt import GPTConfig
 
     per_step = GPTConfig.small().num_layers  # one launch a layer a step
@@ -3553,8 +4145,9 @@ def main() -> int:
     launches["flash_fwd"] += engine_launches
     print(f"flash_fwd launches: training "
           f"{launches['flash_fwd'] - engine_launches}, engine, speculative, "
-          f"fleet and pod paths (phases 7-9) {engine_launches} [{card}]",
-          flush=True)
+          f"fleet and pod paths (phases 7-9) "
+          f"{engine_launches - artifact_launches}, the predictor's "
+          f"artifacts (phase 11) {artifact_launches} [{card}]", flush=True)
     for name, n in family_launches.items():
         launches[name] += n
     print(f"launches of the BASELINE families' paths (phase 10): "

@@ -153,3 +153,133 @@ def flax_params_from(state_dict: dict[str, torch.Tensor]
     params (and ``batch_stats/``), as float32 numpy arrays."""
     return {flax_key(k): v.detach().to("cpu", torch.float32).numpy()
             for k, v in state_dict.items()}
+
+
+# ------------------------------------------------ flax msgpack (params.msgpack)
+
+# flax.serialization's ext type codes: an ndarray packed as the msgpack
+# triple (shape, dtype name, C-order bytes), a Python complex as (re, im),
+# a numpy scalar as a 0-d ndarray
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+# flax splits an array over 2**30 bytes into a dict of flat chunks
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+class _MsgpackReader:
+    """A decoder of the msgpack subset that ``flax.serialization.to_bytes``
+    writes: maps, arrays, str, bin, ints, floats, nil, bool and the ext
+    types above. Arrays are views of the input buffer (no copy)."""
+
+    def __init__(self, raw):
+        self.buf = memoryview(raw)
+        self.pos = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("truncated msgpack data")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _uint(self, n: int) -> int:
+        return int.from_bytes(self._take(n), "big")
+
+    def _int(self, n: int) -> int:
+        return int.from_bytes(self._take(n), "big", signed=True)
+
+    def read(self):
+        b = self._uint(1)
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self._array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return str(self._take(b & 0x1F), "utf-8")
+        if b == 0xC0:
+            return None
+        if b in (0xC2, 0xC3):
+            return b == 0xC3
+        if b in (0xC4, 0xC5, 0xC6):
+            return self._take(self._uint(1 << (b - 0xC4)))
+        if b in (0xC7, 0xC8, 0xC9):
+            n = self._uint(1 << (b - 0xC7))
+            return self._ext(self._int(1), self._take(n))
+        if b == 0xCA:
+            return float(np.frombuffer(self._take(4), ">f4")[0])
+        if b == 0xCB:
+            return float(np.frombuffer(self._take(8), ">f8")[0])
+        if 0xCC <= b <= 0xCF:
+            return self._uint(1 << (b - 0xCC))
+        if 0xD0 <= b <= 0xD3:
+            return self._int(1 << (b - 0xD0))
+        if 0xD4 <= b <= 0xD8:
+            code = self._int(1)
+            return self._ext(code, self._take(1 << (b - 0xD4)))
+        if b in (0xD9, 0xDA, 0xDB):
+            return str(self._take(self._uint(1 << (b - 0xD9))), "utf-8")
+        if b in (0xDC, 0xDD):
+            return self._array(self._uint(2 << (b - 0xDC)))
+        if b in (0xDE, 0xDF):
+            return self._map(self._uint(2 << (b - 0xDE)))
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not supported")
+
+    def _array(self, n: int) -> list:
+        return [self.read() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    @staticmethod
+    def _ext(code: int, data: memoryview):
+        if code == _EXT_NDARRAY:
+            return _ndarray_from(data)
+        if code == _EXT_NPSCALAR:
+            return _ndarray_from(data)[()]
+        if code == _EXT_COMPLEX:
+            re_, im = _MsgpackReader(data).read()
+            return complex(re_, im)
+        raise ValueError(f"msgpack ext type {code} is not flax's")
+
+
+def _ndarray_from(data: memoryview) -> np.ndarray:
+    """flax's packed (shape, dtype name, bytes) -> a read-only ndarray view.
+    bfloat16, which numpy lacks, widens exactly to float32."""
+    shape, name, buffer = _MsgpackReader(data).read()
+    name = bytes(name).decode() if not isinstance(name, str) else name
+    if name == "bfloat16":
+        bits = np.frombuffer(buffer, np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape)
+
+
+def _unchunk(tree):
+    if isinstance(tree, memoryview):  # a bin leaf: bytes, as msgpack's
+        return bytes(tree)
+    if isinstance(tree, dict):
+        if _CHUNKED in tree:
+            shape = [tree["shape"][str(i)] for i in range(len(tree["shape"]))]
+            chunks = [tree["chunks"][str(i)]
+                      for i in range(len(tree["chunks"]))]
+            return np.concatenate(chunks).reshape(shape)
+        return {k: _unchunk(v) for k, v in tree.items()}
+    return tree
+
+
+def flax_msgpack_restore(raw: bytes) -> dict:
+    """``flax.serialization.msgpack_restore`` without msgpack or flax: the
+    nested dict of a ``params.msgpack`` (the JAX package's model dir), its
+    arrays numpy views of ``raw``, chunked arrays joined."""
+    reader = _MsgpackReader(raw)
+    tree = reader.read()
+    if reader.pos != len(reader.buf):
+        raise ValueError(f"{len(reader.buf) - reader.pos} trailing bytes "
+                         "after the msgpack object")
+    return _unchunk(tree)

@@ -35,3 +35,11 @@ def readable_in_place(t: torch.Tensor) -> bool:
     if t.stride(3) != 1 and t.shape[3] != 1:
         return False
     return t.dtype != torch.bfloat16 or async_copy_fault(t) is None
+
+
+def readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the forward kernels can read it as it is (contiguous and
+    ``readable_in_place``), else a contiguous copy."""
+    if t.is_contiguous() and readable_in_place(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

@@ -9,6 +9,15 @@ cp.async copies, so q, k and v must also start 16-byte aligned:
 ``readable_in_place`` of kernels/_layout.py, which the autograd forward
 ensures with a copy). The plain PyTorch version of the same function is
 ``parallel.ring_attention.flash_forward_plain``.
+
+``flash_fwd_op`` (``torch.ops.kftpu.flash_fwd``) is the launch as a torch
+custom op, so that ``torch.export`` can trace through it (a FakeTensor has
+no storage to hand the library): its CUDA implementation copies q, k and v
+the kernel cannot read in place and calls ``flash_fwd``; its CPU
+implementation is the plain version; its fake implementation gives the
+shapes. ``parallel.ring_attention.flash_forward`` calls it, eager, captured
+in a CUDA graph or inside an exported program alike. Registering it builds
+nothing: the library is built at the first CUDA call.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ import math
 
 import torch
 
-from kubeflow_tpu_torch.kernels._layout import async_copy_fault
+from kubeflow_tpu_torch.kernels._layout import async_copy_fault, readable
 from kubeflow_tpu_torch.kernels.build import KERNELS, load
 
 FLASH_FWD = KERNELS["flash_fwd"]
@@ -112,3 +121,39 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"({lib.kft_cuda_error_string(err).decode()})")
     FLASH_FWD.count_launch()
     return o, lse
+
+
+# The op's schema, and its CPU, CUDA and fake implementations, registered
+# through torch.library.Library: the first call of a
+# torch.library.custom_op imports torch._dynamo and torch.distributed.tensor
+# (seconds of a process's cold start), and each call pays a Python layer
+# more.
+_LIB = torch.library.Library("kftpu", "DEF")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor bias, "
+            "bool causal, int window, int block_k) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_cpu(q, k, v, bias, causal, window, block_k):
+    """The plain version with ``block_k``-wide KV blocks (the CUDA kernel
+    tiles for itself and ignores block_k)."""
+    from kubeflow_tpu_torch.parallel.ring_attention import flash_forward_plain
+
+    return flash_forward_plain(q, k, v, bias, block_k, causal, window)
+
+
+def _flash_fwd_cuda(q, k, v, bias, causal, window, block_k):
+    return flash_fwd(readable(q), readable(k), readable(v),
+                     bias.contiguous(), causal, window)
+
+
+def _flash_fwd_fake(q, k, v, bias, causal, window, block_k):
+    b, lq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, lq), dtype=torch.float32))
+
+
+_LIB.impl("flash_fwd", _flash_fwd_cpu, "CPU")
+_LIB.impl("flash_fwd", _flash_fwd_cuda, "CUDA")
+torch.library.register_fake("kftpu::flash_fwd", _flash_fwd_fake, lib=_LIB)
+#: (O, lse) of flash attention: ``torch.ops.kftpu.flash_fwd``
+flash_fwd_op = torch.ops.kftpu.flash_fwd.default

@@ -246,6 +246,18 @@ class KVCache:
         return self.key[0].shape[1]
 
 
+def new_cache(c: GPTConfig, batch: int, device) -> KVCache:
+    """An empty KV cache of configuration ``c`` for ``batch`` rows."""
+    cap = c.kv_cache_capacity or c.max_len
+    shape = (batch, cap, c.num_kv_heads or c.num_heads,
+             c.hidden_size // c.num_heads)
+    kw = {"dtype": c.torch_dtype, "device": device}
+    return KVCache(
+        key=[torch.zeros(shape, **kw) for _ in range(c.num_layers)],
+        value=[torch.zeros(shape, **kw) for _ in range(c.num_layers)],
+        index=torch.zeros((batch,), dtype=torch.int64, device=device))
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, c: GPTConfig, device: torch.device):
         super().__init__()
@@ -483,15 +495,7 @@ class GPTLM(nn.Module):
         return self
 
     def init_cache(self, batch: int) -> KVCache:
-        c = self.cfg
-        cap = c.kv_cache_capacity or c.max_len
-        shape = (batch, cap, c.num_kv_heads or c.num_heads,
-                 c.hidden_size // c.num_heads)
-        kw = {"dtype": c.torch_dtype, "device": self.device}
-        return KVCache(
-            key=[torch.zeros(shape, **kw) for _ in range(c.num_layers)],
-            value=[torch.zeros(shape, **kw) for _ in range(c.num_layers)],
-            index=torch.zeros((batch,), dtype=torch.int64, device=self.device))
+        return new_cache(self.cfg, batch, self.device)
 
     def forward(self, input_ids: torch.Tensor, cache: KVCache | None = None,
                 prefill: bool = False, train: bool = False,
@@ -649,7 +653,22 @@ def generate(
     generator: torch.Generator | None = None,
     eos_token_id=None,
 ) -> torch.Tensor:
-    """Autoregressive generation with the KV cache.
+    """``decode_tokens`` under inference mode."""
+    return decode_tokens(model, prompt_ids, max_new_tokens, temperature,
+                         top_k, generator, eos_token_id)
+
+
+def decode_tokens(
+    model: GPTLM,
+    prompt_ids: torch.Tensor,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    generator: torch.Generator | None = None,
+    eos_token_id=None,
+) -> torch.Tensor:
+    """Autoregressive generation with the KV cache (``generate`` without
+    inference mode: the function ``torch.export`` traces under no_grad).
 
     prompt_ids: (B, prompt_len) integer ids, UNPADDED (all prompts the same
     length; masking is by cache index, not pad id). Returns
@@ -705,7 +724,18 @@ def beam_search(
     max_new_tokens: int,
     num_beams: int = 4,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Beam-search decoding with the KV cache: beams ride the batch dim,
+    """``decode_beams`` under inference mode."""
+    return decode_beams(model, prompt_ids, max_new_tokens, num_beams)
+
+
+def decode_beams(
+    model: GPTLM,
+    prompt_ids: torch.Tensor,
+    max_new_tokens: int,
+    num_beams: int = 4,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decoding with the KV cache (``beam_search`` without
+    inference mode: the function ``torch.export`` traces): beams ride the batch dim,
     and each step reorders the cache rows by beam parent.
 
     Returns (ids (B, max_new_tokens) int32, scores (B,) float32) for the

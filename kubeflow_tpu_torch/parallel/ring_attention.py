@@ -27,7 +27,8 @@ import os
 
 import torch
 
-from kubeflow_tpu_torch.kernels._layout import readable_in_place
+from kubeflow_tpu_torch.kernels._layout import readable, readable_in_place
+from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd_op
 
 NEG_INF = -1e9
 
@@ -117,24 +118,22 @@ def flash_forward(q, k, v, bias, block_q: int = 128, block_k: int = 128,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dispatch of the JAX package's ``_flash_forward``: (out, lse).
 
-    CUDA tensors go to the hand-written kernel, which tiles any shape
-    itself. CPU tensors run the plain version with the JAX package's
-    geometry: block_k-wide KV blocks when block_q and block_k tile the
-    sequences, else the blockwise fallback's default block. The raw
-    forward has no gradient of its own: differentiate ``flash_attention``."""
+    One path, eager or exported: the custom op ``kftpu::flash_fwd``
+    (``kernels/flash_fwd.py``). On CUDA tensors it launches the
+    hand-written kernel, which tiles any shape itself; on CPU tensors it
+    runs the plain version with the JAX package's geometry: block_k-wide KV
+    blocks when block_q and block_k tile the sequences, else the blockwise
+    fallback's default block. The raw forward has no gradient of its own:
+    differentiate ``flash_attention``."""
     _refuse_grad(
         "flash_forward is the raw forward and records no gradient; "
         "differentiate flash_attention, whose backward is the flash "
         "backward", q, k, v, bias)
-    if q.is_cuda:
-        from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
-
-        return flash_fwd(q, k, v, bias, causal, window)
     lq, lk = q.shape[1], k.shape[1]
     block_q, block_k = min(block_q, lq), min(block_k, lk)
     if lq % block_q or lk % block_k:
         block_k = 256
-    return flash_forward_plain(q, k, v, bias, block_k, causal, window)
+    return flash_fwd_op(q, k, v, bias, causal, window, block_k)
 
 
 def flash_backward_plain(q, k, v, bias, o, lse, g, block_k: int = 128,
@@ -226,6 +225,16 @@ def flash_backward(q, k, v, bias, o, lse, g, block_q: int = 128,
     return dq, dk, dv, dbias
 
 
+def _readable(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The forward kernels take contiguous q, k, v whose rows they can copy
+    16 bytes at a time; others get a copy (clone also realigns). Under
+    torch.export a FakeTensor has no address to check: the custom op's
+    CUDA implementation makes the same copies when the program runs."""
+    if torch.compiler.is_exporting():
+        return ts
+    return tuple(readable(t) for t in ts)
+
+
 class _FlashAttention(torch.autograd.Function):
     """``_flash`` with its custom VJP (``_flash_fwd``/``_flash_bwd``,
     :1416-1449): the forward saves q, k, v, bias, O and lse; the backward
@@ -235,11 +244,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, block_q, block_k, causal, window):
-        # the forward kernels take contiguous q, k, v whose rows they can
-        # copy 16 bytes at a time; others get a copy (clone also realigns)
-        q, k, v = (t if t.is_contiguous() and readable_in_place(t)
-                   else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v))
+        q, k, v = _readable(q, k, v)
         out, lse = flash_forward(q, k, v, bias, block_q, block_k, causal,
                                  window)
         ctx.save_for_backward(q, k, v, bias, out, lse)
@@ -270,4 +275,10 @@ def flash_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
             "attention dropout unsupported in flash path")
     if window and not causal:
         raise ValueError("attention window requires causal=True")
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v, bias))):
+        # nothing to differentiate (serving, an exported predictor): the
+        # forward alone, with no autograd.Function for torch.export to trace
+        q, k, v = _readable(q, k, v)
+        return flash_forward(q, k, v, bias, block, block, causal, window)[0]
     return _FlashAttention.apply(q, k, v, bias, block, block, causal, window)

@@ -23,7 +23,10 @@ one fails at startup (it never carries on on the CPU). Its weights come
 from the spec's ``"params"`` (a flax-layout ``.npz``, as a model dir's
 ``params.npz``), or else from ``init_seed`` through a CPU
 ``torch.Generator`` — either way every pod of a fleet holds the same
-weights on any device.
+weights on any device. A spec's ``"compile_cache_dir"`` holds the kernel
+libraries: the worker builds what is missing there and loads them from
+it, so a respawned pod runs nvcc zero times; its ready line on stderr
+carries ``compile_counts`` (utils/compile_cache.py).
 
 Env contract (utils/envvars.py): KFTPU_POD_SOCKET (bind path),
 KFTPU_POD_NAME (trace service / heartbeat identity), KFTPU_POD_SPEC
@@ -140,19 +143,23 @@ class PodServer:
         from kubeflow_tpu_torch.serving.fleet.pagedkv import PagedKVPool
 
         spec = self.spec
-        # spec keys of the reference worker the port cannot honour yet
-        if spec.get("compile_cache_dir"):
-            raise NotImplementedError(
-                "pod spec 'compile_cache_dir': the restart-warm compile "
-                "cache is ported with the serving-artifacts slice "
-                "(ROADMAP Queue A item 9)")
+        device = torch.device(spec.get("device", "cuda"))
+        if spec.get("compile_cache_dir") and device.type == "cuda":
+            # every pod of a fleet runs the same kernels: build them into
+            # the spec's dir once and load them from it, so a respawned pod
+            # runs nvcc zero times (on the CPU the plain versions run and
+            # there is nothing to build)
+            from kubeflow_tpu_torch.kernels.build import load_all
+
+            load_all(spec["compile_cache_dir"])
+        # a spec key of the reference worker the port cannot honour yet
         if int(spec.get("chaos_decode_repeats", 1)) > 1:
             raise NotImplementedError(
                 "pod spec 'chaos_decode_repeats' > 1: the cpu-proxy "
                 "gate's decode chaos is ported with the harness (ROADMAP "
                 "Queue A item 11)")
         cfg = GPTConfig(**spec["model"])
-        model = GPTLM(cfg, device=spec.get("device", "cuda"))
+        model = GPTLM(cfg, device=device)
         if spec.get("params"):
             # the fleet's weights from one file: every pod and the
             # spawner's own reference path hold the same parameters
@@ -511,8 +518,11 @@ def main() -> int:
     tracer = init_worker_from_env(service=name)
     t0 = time.perf_counter()
     server = PodServer(name, spec, tracer=tracer)
+    from kubeflow_tpu_torch.utils.compile_cache import compile_counts
+
     print(f"[podworker {name}] ready in {time.perf_counter() - t0:.2f}s "
-          f"pid={os.getpid()} device={server.engine.device}",
+          f"pid={os.getpid()} device={server.engine.device} "
+          f"compile_counts={json.dumps(compile_counts())}",
           file=sys.stderr, flush=True)
     server.serve(sock_path, transport=transport, port_file=port_file)
     return 0

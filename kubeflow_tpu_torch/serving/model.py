@@ -2,14 +2,19 @@
 ``kubeflow_tpu/serving/model.py``.
 
 The model directory keeps the JAX package's ``config.json`` schema
-(``family``, ``kwargs``, ``input_shape``, ``input_dtype``, ``generate``) and
-stores the weights as ``params.npz`` in the flax param layout
-(``kubeflow_tpu_torch/convert.py``), so one set of weights can be served by
-either implementation.
+(``family``, ``kwargs``, ``input_shape``, ``input_dtype``, ``generate``,
+``quantized``) and stores the weights as ``params.npz`` in the flax param
+layout (``kubeflow_tpu_torch/convert.py``), so one set of weights can be
+served by either implementation. A dir the JAX package wrote
+(``params.msgpack``, float or int8) is read as it is
+(``convert.flax_msgpack_restore``); an int8 artifact (``serving/quant.py``)
+dequantizes once at load; an AOT artifact (``serving/aot.py``) whose
+platform is the running device's is served without rebuilding the module.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import threading
@@ -20,10 +25,17 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.convert import (
+    flax_msgpack_restore,
     flax_params_from,
     flax_params_from_gpt,
     gpt_params_from_flax,
     params_from_flax,
+)
+from kubeflow_tpu_torch.serving.quant import (
+    dequantize_variables,
+    flatten_tree,
+    quantize_variables,
+    unflatten_tree,
 )
 from kubeflow_tpu_torch.utils.device import select_device
 
@@ -48,15 +60,85 @@ class Model:
     def postprocess(self, outputs: Any) -> Any:
         return outputs
 
+    def explain(self, inputs: Any) -> Any:
+        """kserve :explain contract: override in an explainer model.
+        `self.predict_fn` (bound by the server when an explainer wraps a
+        predictor) calls the underlying predictor."""
+        raise NotImplementedError(f"model {self.name!r} has no explainer")
+
     def __call__(self, inputs: Any) -> Any:
         return self.postprocess(self.predict(self.preprocess(inputs)))
 
 
+class ExplainedModel(Model):
+    """Explainer hop (kserve explainer analogue, in-process): predict flows
+    through the predictor; :explain calls the explainer with a handle on the
+    predictor chain (black-box explainers perturb inputs through it)."""
+
+    def __init__(self, name: str, predictor: Model, explainer: Model):
+        super().__init__(name)
+        self.predictor = predictor
+        self.explainer = explainer
+        self.explainer.predict_fn = predictor  # callable chain handle
+
+    def load(self) -> None:
+        if not self.predictor.ready:
+            self.predictor.load()
+        if not self.explainer.ready:
+            self.explainer.load()
+        self.ready = True
+
+    def predict(self, inputs: Any) -> Any:
+        return self.predictor(inputs)
+
+    def explain(self, inputs: Any) -> Any:
+        return self.explainer.explain(inputs)
+
+
+def load_model_class(path: str) -> type[Model]:
+    """Import 'package.module:ClassName' (custom-runtime contract)."""
+    mod_name, _, cls_name = path.partition(":")
+    if not cls_name:
+        raise ValueError(f"modelClass {path!r} must look like 'module:Class'")
+    cls = getattr(importlib.import_module(mod_name), cls_name)
+    if not issubclass(cls, Model):
+        raise TypeError(
+            f"{path} is not a kubeflow_tpu_torch.serving.Model subclass")
+    return cls
+
+
+class TransformedModel(Model):
+    """Transformer hop (kserve transformer analogue, in-process): the
+    transformer's preprocess/postprocess wrap the predictor's full chain."""
+
+    def __init__(self, name: str, predictor: Model, transformer: Model):
+        super().__init__(name)
+        self.predictor = predictor
+        self.transformer = transformer
+
+    def load(self) -> None:
+        if not self.predictor.ready:
+            self.predictor.load()
+        if not self.transformer.ready:
+            self.transformer.load()
+        self.ready = True
+
+    def preprocess(self, inputs: Any) -> Any:
+        return self.transformer.preprocess(inputs)
+
+    def predict(self, inputs: Any) -> Any:
+        return self.predictor(inputs)
+
+    def postprocess(self, outputs: Any) -> Any:
+        return self.transformer.postprocess(outputs)
+
+
 CONFIG_FILE = "config.json"
 PARAMS_FILE = "params.npz"
-# the JAX package's artifacts this runtime cannot read
-_JAX_PARAMS_FILE = "params.msgpack"
-_JAX_AOT_FILE = "predictor.jaxexport"
+#: the JAX package's weights file (flax msgpack of all variable collections)
+JAX_PARAMS_FILE = "params.msgpack"
+#: the variable collections a JAX-written params.msgpack holds
+_JAX_COLLECTIONS = ("params", "batch_stats")
 
 
 #: the in-tree families the runtime builds (the JAX package's
@@ -144,11 +226,10 @@ def save_predictor(
 
     generate (gpt-lm only): decode parameters (max_new_tokens, temperature, top_k,
     eos_token_id, seed, pad_token_id) — the predictor then serves token
-    generation instead of logits."""
-    if quantize:
-        raise NotImplementedError(
-            "int8 weight-only artifacts are ported with the serving-"
-            "artifacts slice (ROADMAP Queue A item 9)")
+    generation instead of logits.
+
+    quantize: int8 weight-only artifact (~4x smaller params.npz;
+    per-output-channel scales, dequantized once at load — serving/quant.py)."""
     if generate is not None and family != "gpt-lm":
         raise ValueError(f"generate: {family} is not a causal LM (only "
                          "gpt-lm generates)")
@@ -164,9 +245,40 @@ def save_predictor(
     }
     if generate is not None:
         cfg["generate"] = generate
+    if quantize:
+        cfg["quantized"] = True
+        flat = flatten_tree(quantize_variables(unflatten_tree(flat)))
     (d / CONFIG_FILE).write_text(json.dumps(cfg, indent=2))
     np.savez(d / PARAMS_FILE, **flat)
     return d
+
+
+def read_params(model_dir: str | Path, config: dict) -> dict[str, np.ndarray]:
+    """A model dir's float weights in the port's flat flax layout: its
+    params.npz, else the JAX package's params.msgpack (the ``params``
+    collection's paths, ``batch_stats/`` beside them); an int8 artifact
+    dequantized to float32 here, once."""
+    model_dir = Path(model_dir)
+    if (model_dir / PARAMS_FILE).exists():
+        with np.load(model_dir / PARAMS_FILE) as z:
+            tree = unflatten_tree({k: z[k] for k in z.files})
+    elif (model_dir / JAX_PARAMS_FILE).exists():
+        variables = flax_msgpack_restore(
+            (model_dir / JAX_PARAMS_FILE).read_bytes())
+        extra = set(variables) - set(_JAX_COLLECTIONS)
+        if extra:
+            raise KeyError(f"{model_dir / JAX_PARAMS_FILE}: variable "
+                           f"collections {sorted(extra)} are not "
+                           f"{_JAX_COLLECTIONS}")
+        tree = dict(variables.get("params", {}))
+        if "batch_stats" in variables:
+            tree["batch_stats"] = variables["batch_stats"]
+    else:
+        raise FileNotFoundError(
+            f"{model_dir} holds neither {PARAMS_FILE} nor {JAX_PARAMS_FILE}")
+    if config.get("quantized"):
+        tree = dequantize_variables(tree)
+    return flatten_tree(tree)
 
 
 def load_generative_model(model_dir: str | Path, device="cuda"):
@@ -174,19 +286,9 @@ def load_generative_model(model_dir: str | Path, device="cuda"):
     mode on `device`."""
     model_dir = Path(model_dir)
     config = json.loads((model_dir / CONFIG_FILE).read_text())
-    if config.get("quantized"):
-        raise NotImplementedError(
-            "int8 weight-only artifacts are ported with the serving-"
-            "artifacts slice (ROADMAP Queue A item 9)")
-    if not (model_dir / PARAMS_FILE).exists() \
-            and (model_dir / _JAX_PARAMS_FILE).exists():
-        raise NotImplementedError(
-            f"{model_dir} holds JAX-package weights ({_JAX_PARAMS_FILE}); "
-            f"the port reads {PARAMS_FILE} (write it with save_predictor)")
     module = _build_family(config["family"], config["kwargs"], device=device,
                            input_shape=config["input_shape"])
-    with np.load(model_dir / PARAMS_FILE) as z:
-        flat = {k: z[k] for k in z.files}
+    flat = read_params(model_dir, config)
     module.load_state_dict(
         gpt_params_from_flax(flat, module.cfg) if config["family"] == "gpt-lm"
         else params_from_flax(flat, module))
@@ -199,18 +301,21 @@ def _load_predict_fn(model_dir: str | Path, device="cuda"
     config, example); predict_fn takes the input tensor on the model's
     device (and a torch.Generator when the config samples) and returns
     logits, or generated ids under a ``generate`` block."""
-    from kubeflow_tpu_torch.models.gpt import beam_search as _beam_search
-    from kubeflow_tpu_torch.models.gpt import generate as _generate
-
     module, config = load_generative_model(model_dir, device)
     example = np.zeros(config["input_shape"], dtype=config["input_dtype"])
+    return (torch.inference_mode()(predictor_fn(module, config)), config,
+            example)
+
+
+def predictor_fn(module: torch.nn.Module, config: dict) -> Callable:
+    """The predictor of a built module, without inference mode (the one
+    definition the eager path runs and serving/aot.py exports): logits, or
+    greedy/sampled/beam ids under a ``generate`` block."""
+    from kubeflow_tpu_torch.models.gpt import decode_beams, decode_tokens
+
     gen = config.get("generate")
     if gen is None:
-        def predict_fn(x):
-            with torch.inference_mode():
-                return module(x)
-
-        return predict_fn, config, example
+        return module
     temperature = float(gen.get("temperature", 0.0))
     num_beams = int(gen.get("num_beams", 1))
     if num_beams > 1 and temperature > 0.0:
@@ -231,18 +336,18 @@ def _load_predict_fn(model_dir: str | Path, device="cuda"
     top_k = int(gen.get("top_k", 0))
     if num_beams > 1:
         def predict_fn(x):
-            ids, _ = _beam_search(module, x, max_new_tokens=max_new,
+            ids, _ = decode_beams(module, x, max_new_tokens=max_new,
                                   num_beams=num_beams)
             return ids
 
-        return predict_fn, config, example
+        return predict_fn
 
     def predict_fn(x, generator=None):
-        return _generate(module, x, max_new_tokens=max_new,
-                         temperature=temperature, top_k=top_k,
-                         generator=generator, eos_token_id=eos_id)
+        return decode_tokens(module, x, max_new_tokens=max_new,
+                             temperature=temperature, top_k=top_k,
+                             generator=generator, eos_token_id=eos_id)
 
-    return predict_fn, config, example
+    return predict_fn
 
 
 class TorchModel(Model):
@@ -252,7 +357,13 @@ class TorchModel(Model):
     requests share a continuous-batching engine (serving/continuous.py) on
     its own thread — or, with ``generate.fleet_replicas > 1``, a
     FleetRouter over that many engines sharing one pool; with
-    ``generate.continuous_draft_dir`` every engine is speculative."""
+    ``generate.continuous_draft_dir`` every engine is speculative.
+
+    Outside the engine, load prefers a deploy-time AOT artifact
+    (serving/aot.py: a torch.export program with the weights in it, the
+    flash kernel a custom op) when its platform is this device's: no module
+    rebuild, no params read. Otherwise it rebuilds the module, warmed up on
+    the recorded example shape so the first request builds no kernel."""
 
     def __init__(self, name: str, model_dir: str | Path,
                  device: str | torch.device = "cuda"):
@@ -260,6 +371,7 @@ class TorchModel(Model):
         self.model_dir = Path(model_dir)
         self.device = select_device(device)
         self._predict_fn: Callable | None = None
+        self._aot_batch: int | None = None  # the artifact's fixed batch
         self._engine = None  # continuous-batching decode engine
         self._fleet = None   # multi-replica fleet router (serving/fleet)
         self._calls = 0
@@ -267,15 +379,26 @@ class TorchModel(Model):
         self.config: dict = {}
 
     def load(self) -> None:
+        from kubeflow_tpu_torch.serving import aot
+
         config = json.loads((self.model_dir / CONFIG_FILE).read_text())
         if (config.get("generate") or {}).get("continuous"):
             self._load_engine(config["generate"])
             return
-        if (self.model_dir / _JAX_AOT_FILE).exists():
-            raise NotImplementedError(
-                f"{self.model_dir} holds a JAX AOT artifact; AOT export is "
-                "ported with the serving-artifacts slice (ROADMAP Queue A "
-                "item 9)")
+        if aot.aot_available(self.model_dir, self.device):
+            self.config = config
+            meta = json.loads((self.model_dir / aot.AOT_META).read_text())
+            call = aot.load_exported(self.model_dir, self.device)
+            self._aot_batch = int(meta["batch_size"])
+            # warmup runs the program once: the kernel library loads (or
+            # builds) here, not in the first request
+            example = np.zeros(config["input_shape"],
+                               dtype=config["input_dtype"])
+            aot.padded_chunk_predict(call, example, self._aot_batch,
+                                     self.device)
+            self._predict_fn = call
+            self.ready = True
+            return
         predict_fn, self.config, example = _load_predict_fn(
             self.model_dir, self.device)
         # warmup on the recorded signature: kernels build at load, so the
@@ -400,6 +523,22 @@ class TorchModel(Model):
         if self._engine is not None or self._fleet is not None:
             out, _ = self._engine_predict_timed(x, gen)
             return out
+        if self._aot_batch is not None:
+            from kubeflow_tpu_torch.serving import aot
+
+            want = tuple(self.config["input_shape"][1:])
+            if gen is not None and tuple(x.shape[1:]) != want:
+                # generation prompts cannot pad (decode masks by position,
+                # not pad id), so the exported fixed shape is a hard
+                # contract along every non-batch dim
+                raise ValueError(
+                    f"AOT generative artifact is fixed to prompt shape "
+                    f"{want}; got {tuple(x.shape[1:])} — send "
+                    f"{want[0]}-token prompts or serve via the eager path "
+                    f"(delete {aot.AOT_FILE})"
+                )
+            return aot.padded_chunk_predict(self._predict_fn, x,
+                                            self._aot_batch, self.device)
         xt = torch.as_tensor(x, device=self.device)
         if self._sampling:
             with self._calls_lock:

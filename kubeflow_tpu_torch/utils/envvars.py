@@ -36,3 +36,11 @@ ENV_POD_TRANSPORT = "KFTPU_POD_TRANSPORT"
 #: file a TCP pod worker atomically writes its bound 127.0.0.1 port to
 #: (the controller polls it the way it polls the AF_UNIX socket path)
 ENV_POD_PORT_FILE = "KFTPU_POD_NET_PORT_FILE"
+#: PVC mount root: pvc://volume/sub -> $KFTPU_PVC_ROOT/volume/sub
+ENV_PVC_ROOT = "KFTPU_PVC_ROOT"
+#: local tree emulating gs://, s3://, hf://, http(s):// object stores
+ENV_OBJECT_STORE_EMULATOR = "KFTPU_OBJECT_STORE_EMULATOR"
+#: the model server's kernel cache dir (the JAX package's name): the
+#: deploy step's export_predictor(compile_cache=...) built the kernel
+#: libraries there, and a server pointed at it builds none
+ENV_SERVING_COMPILE_CACHE = "KFT_COMPILE_CACHE"

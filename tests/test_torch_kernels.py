@@ -222,3 +222,48 @@ def test_backward_kernels_match_plain_on_card(dtype):
             kb.flash_bwd_dkv(x, x, x, torch.zeros((1, 1, 1, 4), device="cuda",
                                                   dtype=dtype),
                              x, shifted, lse, lse, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_custom_op_under_export_launches_kernel(dtype, tol):
+    """flash_forward traced by torch.export holds the custom op
+    kftpu::flash_fwd; the saved and reloaded program launches the
+    hand-written kernel once a call (the count moves), equals the eager
+    op bit for bit and the plain version within phase 3's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import io
+
+    from kubeflow_tpu_torch.kernels.flash_fwd import FLASH_FWD
+
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v, bias):
+            return tra.flash_forward(q, k, v, bias, causal=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((2, 200, 4, 64), generator=gen, device="cuda",
+                           dtype=dtype) for _ in range(3))
+    bias = torch.zeros((2, 1, 1, 200), device="cuda", dtype=dtype)
+    bias[1, ..., 150:] = -1e9
+    with torch.no_grad():
+        program = torch.export.export(Attend(), (q, k, v, bias),
+                                      strict=False)
+    assert sum("kftpu.flash_fwd" in str(n.target)
+               for n in program.graph.nodes) == 1
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    buf.seek(0)
+    call = torch.export.load(buf).module()
+    before = FLASH_FWD.launches
+    o, lse = call(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == before + 1
+    o_e, lse_e = torch.ops.kftpu.flash_fwd(q, k, v, bias, True, 0, 128)
+    assert torch.equal(o, o_e) and torch.equal(lse, lse_e)
+    o_p, lse_p = tra.flash_forward_plain(q, k, v, bias, 64, True)
+    assert (o.float() - o_p.float()).abs().max().item() <= tol
+    assert (lse - lse_p).abs().max().item() <= tol
+    assert worst_block(o, o_p) <= TILE_TOL[dtype]

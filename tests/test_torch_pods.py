@@ -474,11 +474,16 @@ def test_verb_state_machine_matches_jax_podserver(params):
     assert srv._next_event_id == jax_srv._next_event_id
 
 
-def test_worker_refuses_unported_keys_and_a_missing_card(params):
-    for over in ({"compile_cache_dir": "/nonexistent"},
-                 {"chaos_decode_repeats": 2}):
-        with pytest.raises(NotImplementedError, match="Queue A item"):
-            PodServer("refuse", _spec(params, **over))
+def test_worker_refuses_unported_keys_and_a_missing_card(params, tmp_path):
+    with pytest.raises(NotImplementedError, match="Queue A item"):
+        PodServer("refuse", _spec(params, chaos_decode_repeats=2))
+    # compile_cache_dir is honoured: the kernel libraries live there on the
+    # card, and on the CPU (the plain versions) nothing is built
+    from kubeflow_tpu_torch.utils.compile_cache import compile_counts
+
+    before = compile_counts()
+    PodServer("cache", _spec(params, compile_cache_dir=str(tmp_path)))
+    assert compile_counts() == before and not any(tmp_path.iterdir())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PodServer("nocard", {**_spec(params), "device": "cuda"})

@@ -229,8 +229,11 @@ def test_unported_options_and_cuda_request_raise(served, tmp_path):
     sd = gpt_params_from_flax(
         dict(np.load(root / "gen" / "params.npz")), GPTConfig.tiny())
     # fleet_replicas and continuous_draft_dir are served now
-    # (tests/test_torch_fleet.py, tests/test_torch_spec_engine.py); what
-    # the engine predictor still refuses: beam search, JAX-package weights
+    # (tests/test_torch_fleet.py, tests/test_torch_spec_engine.py), and so
+    # are JAX-package weights and int8 artifacts
+    # (tests/test_torch_model_dir.py, tests/test_torch_quant.py); what the
+    # engine predictor still refuses: beam search, and a params.msgpack
+    # that is not flax's msgpack
     d = save_predictor(tmp_path / "beams", "gpt-lm", sd, PROMPT,
                        generate={"continuous": True, "num_beams": 2},
                        size="tiny")
@@ -240,11 +243,11 @@ def test_unported_options_and_cuda_request_raise(served, tmp_path):
                        generate={"continuous": True, "fleet_replicas": 2},
                        size="tiny")
     (d / "params.npz").rename(d / "params.msgpack")
-    with pytest.raises(NotImplementedError, match="JAX-package weights"):
+    with pytest.raises(ValueError, match="trailing bytes"):
         TorchModel("m", d, device="cpu").load()
-    with pytest.raises(NotImplementedError, match="int8"):
-        save_predictor(tmp_path / "q", "gpt-lm", sd, PROMPT, quantize=True,
+    d = save_predictor(tmp_path / "q", "gpt-lm", sd, PROMPT, quantize=True,
                        size="tiny")
+    assert json.loads((d / "config.json").read_text())["quantized"] is True
     # every family the JAX package builds is served now
     # (tests/test_torch_families.py); weights that do not fit the family's
     # module are refused at load
