@@ -4,7 +4,8 @@ Each kernel has a ``Kernel`` record (name, CUDA source, the TPU kernel it
 replaces, a launch count) in ``KERNELS``; its wrapper launches it on CUDA
 tensors and its plain PyTorch version lives beside its caller (for the
 flash-attention kernels, forward and backward:
-``parallel/ring_attention.py``).
+``parallel/ring_attention.py``) or beside the wrapper (dropout:
+``kernels/dropout.py``).
 """
 
 from kubeflow_tpu_torch.kernels.build import KERNELS, Kernel, build_all

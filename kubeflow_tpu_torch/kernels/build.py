@@ -78,6 +78,14 @@ KERNELS: dict[str, Kernel] = {
     "flash_bwd_dkv": Kernel(
         "flash_bwd_dkv", "flash_bwd.cu",
         "kubeflow_tpu/parallel/ring_attention.py:786"),
+    # port-only: the JAX package draws dropout masks in XLA
+    # (jax.random.bernoulli), so these replace no Pallas kernel
+    "dropout_fwd": Kernel(
+        "dropout_fwd", "dropout.cu",
+        "none (kubeflow_tpu/models/gpt.py:218 draws masks in XLA)"),
+    "dropout_bwd": Kernel(
+        "dropout_bwd", "dropout.cu",
+        "none (kubeflow_tpu/models/gpt.py:218 draws masks in XLA)"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,7 @@
 """BERT encoder family — counterpart of ``kubeflow_tpu/models/bert.py``.
 
 Post-LN encoder blocks with pluggable attention: "dense" (this file, with
-attention dropout drawn from an explicit ``torch.Generator``) or "flash"
+attention dropout under a per-block device seed) or "flash"
 (``parallel/ring_attention.flash_attention``: on the card the hand-written
 kernels, non-causal, under the padding bias); "ring"/"ulysses" shard the
 sequence over a device mesh and come with the parallelism slice. Padding is
@@ -11,8 +11,10 @@ shape (B, 1, 1, L).
 Parameters are float32 in flax's names and layouts (``encoder/layer_0/
 attention/query/kernel`` (hidden, heads, head_dim), ...; ``convert.py``);
 each layer computes in ``cfg.dtype``. ``train=True`` applies dropout at
-``cfg.dropout_rate`` with masks from seeds drawn from a CPU generator, one
-per block and one each for the embedding and the pooler. The JAX package's
+``cfg.dropout_rate`` with masks that are functions of device seeds
+(``layers.dropout``; the hand-written kernel on the card), one per block
+and one each for the embedding and the pooler, taken from the step's
+``layers.DropoutSeeds`` or drawn from a CPU generator. The JAX package's
 ``constrain`` is a sharding pin that is a no-op without a mesh; the port has
 no mesh yet, so it has no counterpart. GPT imports ``_resolve_attention``
 from here.
@@ -27,7 +29,6 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models.layers import (
     DTYPES,
@@ -35,10 +36,10 @@ from kubeflow_tpu_torch.models.layers import (
     DenseGeneral,
     LayerNorm,
     VocabEmbed,
-    block_generator,
     block_seeds,
     dropout,
     init_module_weights,
+    remat,
     with_compute_dtype,
 )
 from kubeflow_tpu_torch.train.data import IGNORE_LABEL
@@ -48,8 +49,9 @@ from kubeflow_tpu_torch.utils.device import select_device
 def dense_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
                     block=None):
     """Reference softmax attention: (B, L, H, D) tensors, additive bias.
-    With a generator (``dropout_rng``) and dropout_rate > 0 the
-    probabilities are dropped out (``layers.dropout``)."""
+    With a seed or generator (``dropout_rng``) and dropout_rate > 0 the
+    probabilities are dropped out (``layers.dropout``, the seed's site
+    0)."""
     scores = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias
@@ -162,17 +164,18 @@ class BertLayer(nn.Module):
         self.ln_mlp = LayerNorm(c.hidden_size, compute_dtype=dt,
                                 device=device)
 
-    def forward(self, x, bias, train: bool = False, seed: int | None = None):
-        """seed (training with dropout): the block's masks are drawn from a
-        generator seeded with it — dense attention's probabilities', the
-        attention output's and the MLP output's, in that order."""
+    def forward(self, x, bias, train: bool = False,
+                seed: torch.Tensor | None = None):
+        """seed (training with dropout, a 0-dim int64 on x's device): the
+        block's masks are functions of it — dense attention's
+        probabilities' (site 0), the attention output's (1) and the MLP
+        output's (2)."""
         rate = self.cfg.dropout_rate if train else 0.0
-        gen = block_generator(seed, x.device)
-        y = self.attention(x, bias, train, gen)
-        x = self.ln_attn(x + dropout(y, rate, gen))
+        y = self.attention(x, bias, train, seed)
+        x = self.ln_attn(x + dropout(y, rate, seed, site=1))
         y = F.gelu(self.mlp_up(x), approximate="tanh")  # flax nn.gelu
         y = self.mlp_down(y)
-        return self.ln_mlp(x + dropout(y, rate, gen))
+        return self.ln_mlp(x + dropout(y, rate, seed, site=2))
 
 
 class BertEmbeddings(nn.Module):
@@ -200,7 +203,7 @@ class BertEmbeddings(nn.Module):
             else self.token_embed
 
     def forward(self, input_ids, train: bool = False, token_type_ids=None,
-                seed: int | None = None):
+                seed: torch.Tensor | None = None):
         x = self.tokens()(input_ids)
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         x = x + self.position_embed(pos[None, :])
@@ -209,16 +212,16 @@ class BertEmbeddings(nn.Module):
         x = x + self.type_embed(token_type_ids)
         x = self.ln_embed(x)
         rate = self.cfg.dropout_rate if train else 0.0
-        return dropout(x, rate, block_generator(seed, x.device))
+        return dropout(x, rate, seed)
 
 
 class BertEncoder(nn.Module):
     """Embeddings + transformer stack; returns (B, L, H) hidden states.
 
     forward(input_ids, train, token_type_ids, generator): with ``train``
-    and dropout, seeds for the embedding and each block come from
-    ``generator``; with ``cfg.remat`` each block is recomputed in the
-    backward (torch.utils.checkpoint)."""
+    and dropout, seeds for the embedding and each block are taken from
+    ``generator`` (``layers.block_seeds``); with ``cfg.remat`` each block
+    is recomputed in the backward (torch.utils.checkpoint)."""
 
     PREFERRED_COMPUTE_DTYPE = "bfloat16"
 
@@ -244,16 +247,15 @@ class BertEncoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_layers)]
 
     def forward(self, input_ids, train: bool = False, token_type_ids=None,
-                generator: torch.Generator | None = None):
+                generator=None):
         c = self.cfg
         seeds = block_seeds(c.num_layers + 1, train, c.dropout_rate,
-                            generator)
+                            generator, input_ids.device)
         x = self.embeddings(input_ids, train, token_type_ids, seeds[0])
         bias = padding_bias(input_ids != c.pad_token_id, x.dtype)
         for layer, seed in zip(self.layers(), seeds[1:]):
             if c.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, bias, train, seed,
-                               use_reentrant=False)
+                x = remat(layer, x, bias, train, seed)
             else:
                 x = layer(x, bias, train, seed)
         return x
@@ -284,12 +286,13 @@ class BertForSequenceClassification(nn.Module):
     with_compute_dtype = with_compute_dtype
 
     def forward(self, input_ids, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        seed = block_seeds(1, train, self.cfg.dropout_rate, generator)[0]
+                generator=None) -> torch.Tensor:
+        seed = block_seeds(1, train, self.cfg.dropout_rate, generator,
+                           input_ids.device)[0]
         x = self.encoder(input_ids, train, generator=generator)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         pooled = dropout(pooled, self.cfg.dropout_rate if train else 0.0,
-                         block_generator(seed, x.device))
+                         seed)
         return self.classifier(pooled).float()
 
 
@@ -322,7 +325,7 @@ class BertForMaskedLM(nn.Module):
     with_compute_dtype = with_compute_dtype
 
     def forward(self, input_ids, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator=None) -> torch.Tensor:
         x = self.encoder(input_ids, train, generator=generator)
         x = F.gelu(self.mlm_dense(x), approximate="tanh")
         x = self.mlm_ln(x)

@@ -5,7 +5,7 @@ Pre-LN transformer decoder (GPT-2 shape), learned OR rotary positions,
 optional grouped-query attention (num_kv_heads), sliding-window attention,
 LayerNorm/GELU or RMSNorm/SwiGLU, tied or untied head; inference and
 training (``train=True``: residual, embedding and dense-attention dropout
-drawn from seeds of an explicit generator, ``remat`` per block).
+whose masks are functions of per-block device seeds, ``remat`` per block).
 
 Parameters are float32 whatever ``cfg.dtype``, as flax keeps them
 (``param_dtype``); each layer casts its weight and its input to the compute
@@ -30,7 +30,6 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models.bert import _resolve_attention
 from kubeflow_tpu_torch.models.layers import (
@@ -39,8 +38,8 @@ from kubeflow_tpu_torch.models.layers import (
     block_seeds,
     dropout,
     linear_then_bias,
+    remat,
 )
-from kubeflow_tpu_torch.models.layers import block_generator as _generator
 from kubeflow_tpu_torch.parallel.rope import apply_rope
 from kubeflow_tpu_torch.utils.device import select_device
 
@@ -172,8 +171,9 @@ def causal_dense_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
                            block=None, window: int = 0):
     """Reference causal softmax attention (numerics baseline). window > 0
     adds sliding-window masking: query i sees keys in (i - window, i].
-    With a generator (``dropout_rng``) and dropout_rate > 0 the attention
-    probabilities are dropped out, as in the JAX package."""
+    With a seed or generator (``dropout_rng``, as ``layers.dropout`` takes
+    it) and dropout_rate > 0 the attention probabilities are dropped out
+    (the seed's site 0), as in the JAX package."""
     s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(q.shape[-1])
     if bias is not None:
         s = s + bias
@@ -406,20 +406,20 @@ class GPTBlock(nn.Module):
                               device)
 
     def forward(self, x, bias, cache: KVCache | None = None, layer: int = 0,
-                prefill: bool = False, seed: int | None = None):
-        """seed (training with dropout): the block's masks are drawn from a
-        generator seeded with it — dense attention's probabilities', the
-        attention output's and the MLP output's, in that order."""
+                prefill: bool = False, seed: torch.Tensor | None = None):
+        """seed (training with dropout, a 0-dim int64 on x's device): the
+        block's masks are functions of it — dense attention's
+        probabilities' (site 0), the attention output's (1) and the MLP
+        output's (2)."""
         c = self.cfg
-        gen = _generator(seed, x.device)
-        y = self.attention(self.ln_attn(x), bias, cache, layer, prefill, gen)
-        x = x + dropout(y, c.dropout_rate, gen)
+        y = self.attention(self.ln_attn(x), bias, cache, layer, prefill, seed)
+        x = x + dropout(y, c.dropout_rate, seed, site=1)
         h = self.ln_mlp(x)
         if c.activation == "swiglu":
             h = F.silu(self.mlp_gate(h)) * self.mlp_up(h)
         else:
             h = F.gelu(self.mlp_up(h), approximate="tanh")  # flax nn.gelu
-        return x + dropout(self.mlp_down(h), c.dropout_rate, gen)
+        return x + dropout(self.mlp_down(h), c.dropout_rate, seed, site=2)
 
 
 class GPTLM(nn.Module):
@@ -428,7 +428,7 @@ class GPTLM(nn.Module):
     forward(input_ids (B, L)) -> (B, L, vocab) f32 logits; pad positions
     carry a -1e9 additive bias so they are never attended to. With a
     ``cache`` it runs one decode pass (see ``generate``); with
-    ``train=True`` it applies dropout, seeded from ``generator``.
+    ``train=True`` it applies dropout, its seeds from ``generator``.
     """
 
     #: the Trainer's AUTO compute dtype on the card (its counterpart in the
@@ -499,17 +499,19 @@ class GPTLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, cache: KVCache | None = None,
                 prefill: bool = False, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator=None) -> torch.Tensor:
         """train=True applies dropout at ``cfg.dropout_rate`` (embedding,
         each block's attention and MLP outputs, and dense attention's
-        probabilities); its masks come from seeds drawn from ``generator``
-        (a CPU torch.Generator), one per block and one for the embedding.
+        probabilities); its masks are functions of device seeds, one per
+        block and one for the embedding, taken from ``generator``: the
+        step's ``layers.DropoutSeeds`` (the Trainer's) or a CPU
+        torch.Generator they are drawn from.
         With ``cfg.remat`` each block is recomputed in the backward
         (torch.utils.checkpoint); the decode path is never wrapped."""
         c = self.cfg
         l = input_ids.shape[1]
         seeds = block_seeds(c.num_layers + 1, train, c.dropout_rate,
-                            generator)
+                            generator, input_ids.device)
         x = self.token_embed(input_ids)
         if cache is not None:
             # positions continue from each row's cache index; masking is
@@ -522,11 +524,10 @@ class GPTLM(nn.Module):
             bias = torch.where(mask[:, None, None, :], 0.0, -1e9).to(x.dtype)
         if c.position_embedding == "learned":
             x = x + self.position_embed(pos)
-        x = dropout(x, c.dropout_rate, _generator(seeds[0], x.device))
+        x = dropout(x, c.dropout_rate, seeds[0])
         for i, block in enumerate(self.layers):
             if c.remat and cache is None:
-                x = checkpoint(block, x, bias, None, i, False, seeds[i + 1],
-                               use_reentrant=False)
+                x = remat(block, x, bias, None, i, False, seeds[i + 1])
             else:
                 x = block(x, bias, cache, i, prefill, seeds[i + 1])
         if cache is not None:

@@ -22,7 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from kubeflow_tpu_torch.kernels.dropout import dropout as device_dropout
 from kubeflow_tpu_torch.models.conv import Conv
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -42,37 +44,92 @@ def dtype_name(dtype) -> str:
     return next(k for k, v in DTYPES.items() if v == dt)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+#: the dropout seeds one training step holds (``DropoutSeeds``): a
+#: GPT-2 small step takes 13 (the embedding's and one a block), a BERT
+#: classifier's 14, times the microbatches of a step
+DROPOUT_SEEDS_PER_STEP = 1024
+
+
+class DropoutSeeds:
+    """The dropout seeds of one training step, which its forwards take in
+    order (``block_seeds``): a 1-D int64 tensor of seeds, moved to the
+    device at the first take. The Trainer makes one a step from (seed,
+    step); a CUDA graph's is a row of a device buffer that the host refills
+    before each replay, so every replay draws its own step's masks."""
+
+    def __init__(self, seeds: torch.Tensor):
+        self.seeds = seeds
+        self.used = 0
+
+    def take(self, n: int, device: torch.device) -> torch.Tensor:
+        """The next n seeds, on ``device``."""
+        if self.used + n > self.seeds.numel():
+            raise ValueError(
+                f"a step took more than {self.seeds.numel()} dropout seeds")
+        if self.seeds.device != device:
+            src = self.seeds
+            if device.type == "cuda":
+                src = src.pin_memory()
+            self.seeds = src.to(device, non_blocking=True)
+        out = self.seeds[self.used:self.used + n]
+        self.used += n
+        return out
+
+
+def _host_seeds(n: int, generator: torch.Generator) -> torch.Tensor:
+    """n seeds drawn from a CPU generator."""
+    return torch.randint(0, 2**62, (n,), generator=generator)
+
+
+def dropout(x: torch.Tensor, rate: float, rng, site: int = 0) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
-    scale it by 1 / (1 - rate); the identity without a generator or at rate
-    0. The mask is drawn from ``generator`` on x's device."""
-    if generator is None or not rate:
+    scale it by 1 / (1 - rate); the identity without ``rng`` or at rate 0,
+    zeros at rate 1. ``rng`` is a 0-dim int64 seed on x's device (the mask
+    is a function of (seed, site, element index): ``kernels/dropout.py``,
+    the hand-written kernel on the card) or a CPU ``torch.Generator``, from
+    which one seed is drawn. ``site`` tells apart the masks of the sites
+    that share one seed."""
+    if rng is None or not rate:
         return x
-    keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
-                                                       device=x.device))
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if isinstance(rng, torch.Generator):
+        rng = _host_seeds(1, rng)[0].to(x.device)
+    return device_dropout(x, rng, rate, site)
 
 
-def block_generator(seed: int | None, device: torch.device):
-    """A generator on ``device`` seeded with ``seed``, or None. Made anew
-    inside each block, so a block recomputed under remat draws its masks
-    again from the same seed."""
-    if seed is None:
-        return None
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def block_seeds(n: int, train: bool, rate: float,
-                generator: torch.Generator | None) -> list:
-    """n dropout seeds drawn from ``generator`` (a CPU generator) when
-    training with dropout, else n Nones."""
+def block_seeds(n: int, train: bool, rate: float, generator,
+                device: torch.device) -> list:
+    """n dropout seeds (0-dim int64 tensors on ``device``) when training
+    with dropout, else n Nones. ``generator`` is the step's
+    ``DropoutSeeds``, whose next n seeds are taken, or a CPU
+    ``torch.Generator``, from which n are drawn. A block hands its seed to
+    each of its dropout sites, so a block recomputed under remat redraws
+    its masks."""
     if not (train and rate):
         return [None] * n
     if generator is None:
         raise ValueError("train=True with dropout_rate > 0 needs a generator")
-    return torch.randint(0, 2**62, (n,), generator=generator).tolist()
+    if isinstance(generator, DropoutSeeds):
+        seeds = generator.take(n, device)
+    else:
+        seeds = _host_seeds(n, generator).to(device)
+    return list(seeds.unbind(0))
+
+
+def remat(block: nn.Module, *args):
+    """``block(*args)`` under torch.utils.checkpoint (non-reentrant): its
+    activations are recomputed in the backward. The recompute runs with the
+    parameter tensors this forward saw: under ``torch.func.functional_call``
+    (``train/lora.py``'s merged weights) the module's own parameters are
+    back in place by the time the backward runs, so the tensors are bound
+    again for the recompute. A seed among ``args`` redraws its masks."""
+    tensors = dict(block.named_parameters())
+
+    def run(*a):
+        return torch.func.functional_call(block, tensors, a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class VocabEmbed(nn.Embedding):

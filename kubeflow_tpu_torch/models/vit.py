@@ -22,7 +22,6 @@ from kubeflow_tpu_torch.models.layers import (
     DTYPES,
     Dense,
     LayerNorm,
-    block_generator,
     block_seeds,
     dropout,
     init_module_weights,
@@ -139,7 +138,7 @@ class ViTClassifier(nn.Module):
     with_compute_dtype = with_compute_dtype
 
     def forward(self, images: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator=None) -> torch.Tensor:
         c = self.cfg
         dt = c.torch_dtype
         b, h, w, ch = images.shape
@@ -148,15 +147,14 @@ class ViTClassifier(nn.Module):
             raise ValueError(
                 f"expected {c.image_size}x{c.image_size} images, got {h}x{w}")
         seeds = block_seeds(c.num_layers + 1, train, c.dropout_rate,
-                            generator)
+                            generator, images.device)
         # patchify as reshape + transpose, embed as one matmul
         x = images.to(dt).reshape(b, h // p, p, w // p, p, ch)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, c.num_patches, p * p * ch)
         x = self.patch_embed(x)
         cls = self.cls_token.to(dt).expand(b, 1, c.hidden_size)
         x = torch.cat([cls, x], dim=1) + self.position_embed.to(dt)
-        x = dropout(x, c.dropout_rate if train else 0.0,
-                    block_generator(seeds[0], x.device))
+        x = dropout(x, c.dropout_rate if train else 0.0, seeds[0])
         bias = torch.zeros((b, 1, 1, c.num_patches + 1), dtype=dt,
                            device=x.device)  # no padding in images
         for i, seed in enumerate(seeds[1:]):

@@ -32,8 +32,12 @@ The optimizer stays torch's Adam/AdamW; inside the graph its update is
 written out (``_adam_update``) with the per-step scalars it computes on the
 host (step size, bias correction, AdamW's decay) read from a static device
 tensor the host fills before each replay, so a graphed step is the eager
-step bit for bit. Capture follows one warm-up step whose effects on the
-parameters, buffers, optimizer state and step are undone. On the CPU a
+step bit for bit. Dropout masks are functions of device seeds
+(``models/layers.py`` ``DropoutSeeds``): each step's come from (seed,
+step), and a graph reads its k steps' seeds from a static (k, n) device
+buffer that the host refills before each replay, so a graphed step draws
+the eager step's masks. Capture follows one warm-up step whose effects on
+the parameters, buffers, optimizer state and step are undone. On the CPU a
 chunk is k ``train_step``s in order.
 
 What ``fit`` cannot honour yet raises NotImplementedError naming its
@@ -61,7 +65,11 @@ from kubeflow_tpu_torch.kernels.build import (
     launch_counts,
     launches_since,
 )
-from kubeflow_tpu_torch.models.layers import as_torch_dtype
+from kubeflow_tpu_torch.models.layers import (
+    DROPOUT_SEEDS_PER_STEP,
+    DropoutSeeds,
+    as_torch_dtype,
+)
 from kubeflow_tpu_torch.train import metrics as metrics_lib
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
 from kubeflow_tpu_torch.train.data import (
@@ -225,9 +233,9 @@ class TrainState:
 class Trainer:
     """Trainer for a module ``model(x) -> logits`` on the device of its
     parameters. A model whose forward takes ``train`` (and ``generator``,
-    for dropout) is called with them. The model arrives with its weights
-    (``GPTLM.init_weights``, a converted checkpoint); ``config.seed`` seeds
-    dropout and the batch order."""
+    for dropout: the step's ``DropoutSeeds``) is called with them. The
+    model arrives with its weights (``GPTLM.init_weights``, a converted
+    checkpoint); ``config.seed`` seeds dropout and the batch order."""
 
     def __init__(
         self,
@@ -371,12 +379,15 @@ class Trainer:
             kw["generator"] = generator
         return model(x, **kw)
 
-    def _step_generator(self, step: int) -> torch.Generator:
-        """The dropout seeds of one step: a function of (seed, step) only,
-        so a resumed run draws the masks the uninterrupted one drew."""
+    def _step_seeds(self, step: int) -> torch.Tensor:
+        """One step's dropout seeds on the host, DROPOUT_SEEDS_PER_STEP
+        int64s: a function of (seed, step) only, so a resumed run draws the
+        masks the uninterrupted one drew. The eager step takes its seeds
+        from them, and a graph's seed buffer holds them for that step."""
         seed = int(np.random.SeedSequence(
             [self.config.seed, step]).generate_state(1, np.uint64)[0])
-        return torch.Generator().manual_seed(seed)
+        return torch.randint(0, 2**62, (DROPOUT_SEEDS_PER_STEP,),
+                             generator=torch.Generator().manual_seed(seed))
 
     def train_step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
         """One optimizer step on batch (x, y) — host arrays or tensors —
@@ -385,11 +396,14 @@ class Trainer:
         return self._step(state, batch, self._optimizer_step)
 
     def _step(self, state: TrainState, batch,
-              update: Callable[[TrainState], None]
+              update: Callable[[TrainState], None],
+              seeds: DropoutSeeds | None = None
               ) -> tuple[TrainState, dict]:
         """train_step, its optimizer update done by ``update(state)`` (a
-        CUDA graph's reads its scalars from device tensors). Nothing in it
-        waits for the device, so a graph can capture it."""
+        CUDA graph's reads its scalars from device tensors) and its dropout
+        seeds taken from ``seeds`` (default: this step's, ``_step_seeds``;
+        a graph's: a row of its device buffer). Nothing in it waits for the
+        device, so a graph can capture it."""
         c = self.config
         x, y = self._place(batch)
         x = self._cast(x)
@@ -400,7 +414,8 @@ class Trainer:
                 f"grad_accum_steps {n_acc}")
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        gen = self._step_generator(state.step)
+        gen = seeds if seeds is not None else DropoutSeeds(
+            self._step_seeds(state.step))
         loss_sum = acc_sum = 0.0
         for mx, my in zip(x.chunk(n_acc), y.chunk(n_acc)):
             logits = self._apply(state.model, mx, gen, True).float()
@@ -479,6 +494,7 @@ class Trainer:
         graph = self._graph(state, batch, k, scanned)
         graph.upload(batch)
         graph.scalars.copy_(self._update_scalars(state, k))
+        graph.seeds.copy_(self._graph_seeds(state, k))
         graph.graph.replay()
         add_launches(graph.launches)
         opt = state.optimizer
@@ -502,14 +518,13 @@ class Trainer:
             self._graphs[key] = graph
         return graph
 
+    def _graph_seeds(self, state: TrainState, k: int) -> torch.Tensor:
+        """The next k steps' dropout seeds, one row a step."""
+        return torch.stack([self._step_seeds(state.step + i)
+                            for i in range(k)])
+
     def _capture(self, state: TrainState, sample, k: int,
                  scanned: bool) -> "_StepGraph":
-        rate = getattr(getattr(self.model, "cfg", None), "dropout_rate", 0.0)
-        if rate and self._accepts_generator:
-            raise NotImplementedError(
-                f"fused_steps > 1 on the card with dropout_rate {rate}: a "
-                "CUDA graph would replay one step's dropout masks (ROADMAP "
-                "Queue A item 3)")
         opt = state.optimizer
         _check_adam(opt)
         dev = self.device
@@ -531,6 +546,7 @@ class Trainer:
         self.graph_warmups += GRAPH_WARMUP_STEPS
         _restore(state, snap)
         scalars = self._update_scalars(state, k).to(dev)
+        seeds = self._graph_seeds(state, k).to(dev)
         opt.zero_grad(set_to_none=True)  # grads from the graph's pool
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
@@ -541,14 +557,15 @@ class Trainer:
                     state, m = self._step(
                         state, step_batch(i),
                         lambda st, i=i: _adam_update(st.optimizer,
-                                                     scalars[i]))
+                                                     scalars[i]),
+                        DropoutSeeds(seeds[i]))
         finally:
             state.step = step0  # the capture ran no step
             captured = launches_since(before)
             add_launches(captured, -1)  # they run at each replay
         params = [p for g in opt.param_groups for p in g["params"]
                   if p.grad is not None]
-        return _StepGraph(graph, inputs, scalars, params, m, captured,
+        return _StepGraph(graph, inputs, scalars, seeds, params, m, captured,
                           state, state.generation)
 
     # ---------------------------------------------------------------- eval
@@ -885,13 +902,14 @@ class Trainer:
 class _StepGraph:
     """One captured CUDA graph of k optimizer steps, and what it reads and
     writes besides the parameters and the optimizer's state: the static
-    input buffers, the k steps' update scalars, the last step's metrics,
-    and each kernel's launches in one replay. ``state`` and ``generation``
-    name the tensors it was captured over."""
+    input buffers, the k steps' update scalars and dropout seeds, the last
+    step's metrics, and each kernel's launches in one replay. ``state`` and
+    ``generation`` name the tensors it was captured over."""
 
     graph: Any
     inputs: tuple
     scalars: torch.Tensor  # _update_scalars' (k, 3), on the device
+    seeds: torch.Tensor    # _graph_seeds' (k, DROPOUT_SEEDS_PER_STEP)
     params: list        # the parameters its optimizer updates update
     metrics: dict
     launches: dict

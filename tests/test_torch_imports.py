@@ -40,7 +40,9 @@ def test_port_files_exist():
                 "models/bert.py", "models/vit.py", "models/__init__.py",
                 "utils/compile_cache.py", "serving/quant.py",
                 "serving/aot.py", "serving/storage.py", "serving/agent.py",
-                "serving/server.py"):
+                "serving/server.py", "kernels/dropout.py",
+                "train/tokenizer.py", "train/bpe_gpt2.py", "train/lora.py",
+                "train/convert.py", "cli.py", "__main__.py"):
         assert ROOT / "kubeflow_tpu_torch" / rel in FILES, rel
 
 

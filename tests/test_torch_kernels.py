@@ -267,3 +267,58 @@ def test_custom_op_under_export_launches_kernel(dtype, tol):
     assert (o.float() - o_p.float()).abs().max().item() <= tol
     assert (lse - lse_p).abs().max().item() <= tol
     assert worst_block(o, o_p) <= TILE_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_dropout_kernels_bit_equal_plain_on_card(dtype):
+    """dropout_fwd and dropout_bwd against dropout_plain: outputs and
+    grads bit-equal (the same Philox draws, the same f32 product rounded
+    to the dtype) at GPT-2 small's residual width, a ragged size (a
+    multiple of none of 4, 16, 128) and a misaligned view (the kernels'
+    element path); two calls bit-equal; another seed or site another mask;
+    the kernel's launches counted, the plain version's not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from kubeflow_tpu_torch.kernels import dropout as kd
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seeds = torch.tensor([12345, 2**61 + 7], dtype=torch.int64,
+                         device="cuda")
+    base = torch.randn(3 * 1024 * 768 + 3, generator=gen, device="cuda")
+    cases = [base[:3 * 1024 * 768].view(3, 1024, 768),
+             base[:1000003].view(1000003), base[1:1000004]]
+    for x in cases:
+        x = x.to(dtype)
+        for seed, site, rate in ((seeds[0], 0, 0.1), (seeds[1], 2, 0.5)):
+            fwd, bwd = kd.DROPOUT_FWD.launches, kd.DROPOUT_BWD.launches
+            got = kd.dropout_fwd(x.contiguous(), seed, rate, site)
+            again = kd.dropout_fwd(x.contiguous(), seed, rate, site)
+            gx = kd.dropout_bwd(x.contiguous(), seed, rate, site)
+            want = kd.dropout_plain(x, seed, rate, site)
+            torch.cuda.synchronize()
+            assert kd.DROPOUT_FWD.launches == fwd + 2
+            assert kd.DROPOUT_BWD.launches == bwd + 1
+            bits = {torch.float32: torch.int32}.get(dtype, torch.int16)
+            assert torch.equal(got.view(bits), want.view(bits))
+            assert torch.equal(again.view(bits), got.view(bits))
+            assert torch.equal(gx.view(bits), want.view(bits))
+            kept = (got != 0).float().mean().item()
+            n = x.numel()
+            assert abs(kept - (1 - rate)) < 4 * (rate * (1 - rate) / n) ** .5
+        other = kd.dropout_fwd(x.contiguous(), seeds[0], 0.1, 1)
+        assert not torch.equal(other != 0, got != 0)
+    # through autograd: the backward launches dropout_bwd
+    x = torch.randn(8, 1024, 768, device="cuda", dtype=dtype,
+                    requires_grad=True)
+    y = kd.dropout(x, seeds[0], 0.1, 1)
+    g = torch.randn_like(y)
+    y.backward(g)
+    assert torch.equal(x.grad, kd.dropout_plain(g, seeds[0], 0.1, 1))
+    assert torch.equal(y.detach(), kd.dropout_plain(x.detach(), seeds[0],
+                                                    0.1, 1))
+    with pytest.raises(ValueError, match="not contiguous"):
+        kd.dropout_fwd(x.detach().transpose(0, 1), seeds[0], 0.1)
+    with pytest.raises(ValueError, match="int64"):
+        kd.dropout_fwd(x.detach(), seeds[:1].float(), 0.1)

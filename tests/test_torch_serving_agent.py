@@ -365,12 +365,14 @@ def test_metrics_gauges_equal_jax():
         code, text = srv.handle_get("/metrics")
         assert code == 200
         texts.append(text)
-    # the port's own counters follow JAX's text: the kernels' launches
+    # the port's own counters follow JAX's text: each kernel's launches
     port, jax_text = texts
     assert port.startswith(jax_text)
+    from kubeflow_tpu_torch.kernels import KERNELS
+
     assert re.fullmatch(r"# TYPE kftpu_kernel_launches_total counter\n"
                         r'(kftpu_kernel_launches_total\{kernel="\w+"\} '
-                        r"\d+\n){4}", port[len(jax_text):])
+                        rf"\d+\n){{{len(KERNELS)}}}", port[len(jax_text):])
     assert 'kfserving_engine_rows_busy{model="solo"} 3' in texts[0]
     assert 'kfserving_engine_queue_depth{model="fleet:r1"} 1' in texts[0]
     assert 'kfserving_fleet_replicas_alive{model="fleet"} 2' in texts[0]
