@@ -180,6 +180,35 @@ Phases, each fatal on failure:
      bit-equal), their loop and device times beside the bound, the plain
      version and torch's dropout
 
+  13. sharded and MoE training and MoE serving ((b)-(c) run first, on
+     an empty card; (a) and (d) last), at
+     Mixtral-8x7B's published widths (32 heads, 8 KV heads, head_dim 128,
+     8 experts top-2, SwiGLU, seeded weights): (a) flash_fwd, dd, dq and
+     dkv at head_dim 128 against their plain versions, (4, 1024, 32, 128)
+     causal bf16 and f32 and the (1, 128) prefill, phase 3's and 5's
+     limits, their loop and device times beside the bound and SDPA's; (b)
+     a child process given the PyTorchJob env of a world of one runs
+     runtime.initialize_from_env over NCCL: its heartbeat's rendezvous and
+     rendezvous-done beats, its rendezvous span, an all_reduce; (c) in that
+     child, MOE_TRAIN_LAYERS layers at MOE_BATCH x MOE_LEN fitted from the
+     same weights eagerly, under MeshConfig(fsdp=1) over the NCCL group
+     (losses within MOE_MESH_RTOL of the eager fit's; a world of one: no
+     FSDP2 code and no collective runs in its steps, which only the CPU
+     gloo gangs of the tests exercise) and graphed
+     (fused_steps=MOE_FUSED, within GRAPH_LOSS_RTOL): launches checked per
+     dispatch, the loss finite and falling and its first value the cross
+     entropy plus the layers' aux losses; step time, tokens/s, peak memory
+     and a profiled step's or chunk's idle share; (d) MOE_SERVE_LAYERS
+     layers in bf16 served by the continuous-batching engine behind
+     ModelServer: MOE_ROWS requests of MOE_PROMPT tokens, MOE_NEW new
+     tokens each: every greedy token within BF16_ULPS of its step's max
+     under teacher forcing on the plain path (dense attention, no cache,
+     each MoE layer a plain loop over the experts that the engine's
+     arithmetic chose, so a near-tie that rounds the other way cannot
+     move a token to another expert) and of the engine's arithmetic run
+     a request at a time, flash_fwd launches = layers x prefills, MoE forwards routed only in prefills and dropless only in
+     decode ticks; TTFT, decode tokens/s, the tick and what bounds it
+
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Every number is printed beside the card's
 name and power limit. Without a CUDA device it exits nonzero and prints no
@@ -188,6 +217,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -366,9 +396,9 @@ TC_INSTANTIATIONS = (
 def tensor_core_report(card: str) -> tuple[int, dict]:
     """Print registers, spills and shared memory of every tensor-core
     instantiation of the forward and of dq/dkv, from nvcc's ptxas reports.
-    Return the spill bytes at D = 64, the training head_dim, and each
-    dtype's routes as the built libraries hold them: {dtype: {kernel:
-    {route: instantiations}}}."""
+    Return the spill bytes by head_dim ({D: bytes}; phase 6 trains at D =
+    64, phase 13 at 128), and each dtype's routes as the built libraries
+    hold them: {dtype: {kernel: {route: instantiations}}}."""
     import re
 
     import torch
@@ -377,7 +407,7 @@ def tensor_core_report(card: str) -> tuple[int, dict]:
     from kubeflow_tpu_torch.kernels import flash_fwd as kf
     from kubeflow_tpu_torch.kernels.build import report_path
 
-    spill64 = 0
+    spills: dict = {}
     rows = []
     routes: dict = {}
     for source, pattern, expected in TC_INSTANTIATIONS:
@@ -400,8 +430,7 @@ def tensor_core_report(card: str) -> tuple[int, dict]:
             rows.append((kernel, d, {"": "", "0": "ddpre", "1": "loop2"}[form],
                          regs, st, ld, smem))
             found += 1
-            if d == 64:
-                spill64 += st + ld
+            spills[d] = spills.get(d, 0) + st + ld
         if found != expected:
             raise AssertionError(f"ptxas reported {found} tensor-core "
                                  f"instantiations in {source}, expected "
@@ -410,7 +439,7 @@ def tensor_core_report(card: str) -> tuple[int, dict]:
         print(f"  {kernel:13s} bf16 D={d:3d} {form:5s}: {regs} registers, "
               f"{st} bytes spill stores, {ld} bytes spill loads, {smem} bytes "
               f"shared memory [{card}]")
-    return spill64, routes
+    return spills, routes
 
 
 def route_line(routes: dict, dtype: str, kernels) -> str:
@@ -982,9 +1011,9 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
             for name in ("flash_bwd_dd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
-def gpt_trainer(cfg, seed: int, **kw):
-    """GPT-2 small at cfg with seeded weights, and the Trainer of phase 6's
-    config (kw overrides it)."""
+def gpt_trainer(cfg, seed: int, model=None, **kw):
+    """GPT-2 small at cfg with seeded weights (or ``model``), and the
+    Trainer of phase 6's config (kw overrides it)."""
     import torch
 
     from kubeflow_tpu_torch.models.gpt import (
@@ -994,8 +1023,9 @@ def gpt_trainer(cfg, seed: int, **kw):
     )
     from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    model = GPTLM(cfg, device="cuda").init_weights(
-        torch.Generator().manual_seed(seed))
+    if model is None:
+        model = GPTLM(cfg, device="cuda").init_weights(
+            torch.Generator().manual_seed(seed))
     config = {"batch_size": TRAIN_BATCH, "steps": TRAIN_STEPS,
               "learning_rate": 3e-4, "warmup_steps": TRAIN_WARMUP,
               "log_every_steps": 1, "seed": SEED, **kw}
@@ -4842,18 +4872,675 @@ def lc_dropout_kernels(peaks, card: str) -> dict:
                 plain_ms = time_ms(
                     lambda: kd.dropout_plain(x, seed, rate, site), 5)
                 lib = time_ms(libs[name], 50)
+                lib_dev = device_ms(libs[name], 20)
                 print(f"  {name} {tag}: bit-equal to the plain version; "
                       f"loop {ms:.5f} ms, device {dev:.5f} ms, bound "
                       f"{bound_ms:.5f} ms ({bound_by}; "
                       f"{100 * bound_ms / dev:.1f}% of it), plain "
                       f"{plain_ms:.5f} ms, torch's dropout {lib:.5f} ms "
-                      f"[{card}]", flush=True)
+                      f"(device {lib_dev:.5f} ms) [{card}]", flush=True)
                 if dt == torch.bfloat16:
                     records[name] = {
                         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib, "device_ms": dev}
+                        "library_ms": lib, "device_ms": dev,
+                        "library_device_ms": lib_dev}
     return records
+
+
+# ------------------------------------------------------------------ phase 13
+
+#: Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1 config.json)
+MOE_DIMS = dict(vocab_size=32000, hidden_size=4096, num_heads=32,
+                num_kv_heads=8, mlp_dim=14336, moe_experts=8, moe_top_k=2,
+                rope_theta=1e6, norm_eps=1e-5)
+MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS = 2, 4       # of 32: see PERF.md §4
+# MOE_STEPS is a multiple of MOE_FUSED: once the graph's pool holds its
+# gradients and activations, an eager tail step's own do not fit the card
+MOE_BATCH, MOE_LEN, MOE_STEPS, MOE_FUSED, MOE_LR = 4, 1024, 12, 4, 1e-4
+#: the training chain's ids (of the 32000): each (token, next) pair recurs
+#: within a step, so 12 steps learn it; over all 32000 ids a pair is seen
+#: about once in the fit and the loss stays flat
+MOE_DATA_VOCAB = 64
+MOE_MESH_RTOL = 1e-5
+MOE_ROWS, MOE_PROMPT, MOE_NEW = 8, 128, 64
+MOE_CHILD_TIMEOUT_S = 600
+
+
+def mixtral_cfg(layers: int, **kw):
+    """GPTConfig.llama at Mixtral-8x7B's widths, cut to ``layers``."""
+    from kubeflow_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig.llama(**{**MOE_DIMS, "num_layers": layers,
+                              "attention": "flash", "dropout_rate": 0.0,
+                              **kw})
+
+
+def moe_kernels(peaks, card: str) -> None:
+    """Phase 13 (a): the flash kernels at head_dim 128 (32 heads, the
+    Mixtral decoder's, KV heads repeated before the kernel) against their
+    plain versions: the training shape (4, 1024) causal in bf16 and f32,
+    forward and backward (D read), and the serving prefill (1, 128) bf16;
+    phase 3's and phase 5's limits; loop and device times beside the bound
+    and SDPA's."""
+    import torch
+
+    from kubeflow_tpu_torch.kernels import flash_bwd as kb
+    from kubeflow_tpu_torch.kernels.flash_fwd import flash_fwd
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        flash_backward_plain,
+        flash_forward_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    h, d = MOE_DIMS["num_heads"], 128
+    print(f"phase 13 (a): flash kernels at D={d}, H={h}, causal, pad bias "
+          "on the last keys of the last row; limits as phases 3 and 5 "
+          "[" + card + "]", flush=True)
+    cases = [(MOE_BATCH, MOE_LEN, "bfloat16", True),
+             (MOE_BATCH, MOE_LEN, "float32", True),
+             (1, MOE_PROMPT, "bfloat16", False)]
+    for b, l, dt, backward in cases:
+        dtype = getattr(torch, dt)
+        q, k, v, bias = make_attention_inputs(b, l, h, d, dtype, 16, gen)
+        o, lse = flash_fwd(q, k, v, bias, True, 0)
+        o_p, lse_p = flash_forward_plain(q, k, v, bias, 128, True, 0)
+        o_2, lse_2 = flash_fwd(q, k, v, bias, True, 0)
+        torch.cuda.synchronize()
+        fwd_tol = 1e-4 if dt == "float32" else 2e-2
+        err = {"flash_fwd": (o.float() - o_p.float()).abs().max().item()}
+        err_l = (lse - lse_p).abs().max().item()
+        tiles = {"flash_fwd": tile_error(o.transpose(1, 2),
+                                         o_p.transpose(1, 2))}
+        same = torch.equal(o, o_2) and torch.equal(lse, lse_2)
+        bad = []
+        if not (err["flash_fwd"] <= fwd_tol and err_l <= fwd_tol and same):
+            bad.append(("flash_fwd", err["flash_fwd"], err_l, same))
+        iters = 10 if l >= 1024 else 50
+        calls = {"flash_fwd": functools.partial(flash_fwd, q, k, v, bias,
+                                                True, 0)}
+        fb, fb_by = attention_bound(b, h, l, l, d, dt, True, 0, peaks)
+        bounds = {"flash_fwd": (fb, fb_by)}
+        lib = {"flash_fwd": sdpa_call(q, k, v, bias, True, 0)}
+        if backward:
+            g = torch.randn((b, l, h, d), generator=gen,
+                            device="cuda").to(dtype)
+            want = flash_backward_plain(q, k, v, bias, o, lse, g, 128, True,
+                                        0, True)
+            dd = kb.flash_bwd_dd(o, g)
+            dq = kb.flash_bwd_dq(q, k, v, bias, o, g, lse, dd, True, 0)
+            dk, dv, dbh = kb.flash_bwd_dkv(q, k, v, bias, o, g, lse, dd,
+                                           True, 0, True)
+            dbias = dbh.view(b, h, l).sum(1)[:, None, None]
+            torch.cuda.synchronize()
+            err["flash_bwd_dd"] = (dd - (g.float() * o.float()).sum(-1)
+                                   .transpose(1, 2)).abs().max().item()
+            rel_tol = 1e-4 if dt == "float32" else 4 * 2.0 ** -8
+            for name, got, ref in (("flash_bwd_dq", dq, want[0]),
+                                   ("flash_bwd_dkv", dk, want[1]),
+                                   ("flash_bwd_dkv", dv, want[2]),
+                                   ("flash_bwd_dkv", dbias, want[3])):
+                ref = ref.float()
+                scale = max(1.0, ref.abs().max().item())
+                e = (got.float() - ref).abs().max().item() / scale
+                err[name] = max(err.get(name, 0.0), e)
+                shaped = ((lambda x: x.view(b, 1, l, 1)) if ref.shape[1] == 1
+                          else (lambda x: x.transpose(1, 2)))
+                tiles[name] = max(tiles.get(name, 0.0),
+                                  tile_error(shaped(got), shaped(ref)))
+                if not e <= rel_tol:
+                    bad.append((name, e))
+            calls["flash_bwd_dd"] = functools.partial(kb.flash_bwd_dd, o, g)
+            calls["flash_bwd_dq"] = functools.partial(
+                kb.flash_bwd_dq, q, k, v, bias, o, g, lse, dd, True, 0)
+            calls["flash_bwd_dkv"] = functools.partial(
+                kb.flash_bwd_dkv, q, k, v, bias, o, g, lse, dd, True, 0,
+                False)
+            bounds.update(backward_bounds(b, h, l, l, d, dt, True, 0, peaks,
+                                          False, False))
+            fwd_bwd, fwd_only = sdpa_backward_call(q, k, v, bias, g, True, 0)
+        bad += [(f"{n} block", t) for n, t in tiles.items()
+                if not t <= TILE_TOL[dt]]
+        for name, call in calls.items():
+            ms, dev = time_ms(call, iters), device_ms(call, iters)
+            bound_ms, bound_by = bounds[name]
+            print(f"  {name:13s} B={b} L={l:5d} H={h} D={d} {dt:9s} "
+                  f"err={err[name]:.3e} worst block {tiles.get(name, 0):.3e}"
+                  f" ms={ms:.5f} dev={dev:.5f} bound_ms={bound_ms:.5f} "
+                  f"({bound_by}) [{card}]", flush=True)
+        sd_ms, sd_dev = (time_ms(lib["flash_fwd"], iters),
+                         device_ms(lib["flash_fwd"], iters))
+        causal = sdpa_causal_call(q, k, v)
+        line = (f"  SDPA forward masked {sd_ms:.5f} ms (dev {sd_dev:.5f}), "
+                f"is_causal {time_ms(causal, iters):.5f} ms (dev "
+                f"{device_ms(causal, iters):.5f})")
+        if backward:
+            bwd = time_ms(fwd_bwd, iters) - time_ms(fwd_only, iters)
+            bwd_dev = device_ms(fwd_bwd, iters) - device_ms(fwd_only, iters)
+            line += f"; SDPA backward {bwd:.5f} ms (dev {bwd_dev:.5f})"
+        print(line + f"; lse err {err_l:.3e}; two calls bit-equal {same} "
+              f"[{card}]", flush=True)
+        if bad:
+            raise AssertionError(f"phase 13 (a): kernels disagree with the "
+                                 f"plain version at B={b} L={l} D={d} {dt}: "
+                                 f"{bad}")
+
+
+def moe_train_child(out: str) -> None:
+    """Phase 13 (b) and (c), in a process of its own with the PyTorchJob
+    env of a world of one: initialize_from_env over NCCL, then the 2-layer
+    Mixtral-width decoder fitted three ways from the same weights. Writes
+    its readings as JSON to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import health, tracing
+    from kubeflow_tpu_torch.models.gpt import GPTLM, causal_lm_loss
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
+    from kubeflow_tpu_torch.parallel.moe import collect_losses
+    from kubeflow_tpu_torch.runtime import initialize_from_env, shutdown
+    from kubeflow_tpu_torch.train.data import batches, synthetic_lm_dataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {}
+    phases = []
+    beat = health.HeartbeatWriter.beat
+
+    def spy(self, step=-1, phase="train"):
+        phases.append(phase)
+        return beat(self, step, phase)
+
+    health.HeartbeatWriter.beat = spy
+    t0 = time.perf_counter()
+    ctx = initialize_from_env()
+    res["rendezvous_s"] = time.perf_counter() - t0
+    health.HeartbeatWriter.beat = beat
+    with open(os.environ[health.ENV_HEARTBEAT_FILE]) as fh:
+        res["heartbeat"] = json.load(fh)
+    res["phases"], res["backend"] = phases, dist.get_backend()
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    res["ctx"] = [ctx.process_id, ctx.num_processes, ctx.coordinator,
+                  float(one.item())]
+    tracing.flush()
+    cfg = mixtral_cfg(MOE_TRAIN_LAYERS, max_len=MOE_LEN)
+    ds = synthetic_lm_dataset(n_train=MOE_BATCH * MOE_STEPS,
+                              n_test=MOE_BATCH, seq_len=MOE_LEN,
+                              vocab_size=MOE_DATA_VOCAB, seed=SEED)
+    first = next(batches(ds.x_train, ds.y_train, MOE_BATCH, seed=0))
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    for name, kw in (("eager", {}), ("mesh", {"mesh": MeshConfig(fsdp=1)}),
+                     ("graphed", {"fused_steps": MOE_FUSED})):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        trainer = gpt_trainer(cfg, SEED, model=GPTLM(cfg, device="cuda")
+                              .init_weights(gen), batch_size=MOE_BATCH,
+                              steps=MOE_STEPS, learning_rate=MOE_LR,
+                              warmup_steps=0, **kw)
+        if name == "eager":
+            res["params"] = sum(p.numel() for p in trainer.model.parameters())
+            x = torch.as_tensor(first[0], device="cuda").long()
+            with torch.no_grad(), collect_losses() as sown:
+                ce = causal_lm_loss(trainer.model(x), x)
+            res["first_ce"], res["first_aux"] = ce.item(), [
+                a.item() for a in sown]
+        if name == "mesh":
+            res["mesh_backend"] = dist.get_backend(
+                trainer.mesh.device_mesh.get_group("fsdp"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = fit_timed(trainer, ds)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_flash_steps(run, MOE_TRAIN_LAYERS, f"phase 13 {name} fit")
+        card = card_line()
+        if name == "graphed":
+            k = MOE_FUSED
+            stacked = tuple(np.stack([a[i * MOE_BATCH:(i + 1) * MOE_BATCH]
+                                      for i in range(k)])
+                            for a in (ds.x_train, ds.y_train))
+            idle = profile_step(lambda: trainer.train_chunk(
+                run["state"], stacked, k), run["chunk_ms"], card,
+                what=f"chunk of {k} steps")
+        else:
+            idle = profile_step(lambda: trainer.train_step(run["state"],
+                                                           first),
+                                run["step_ms"], card)
+        for n, c in _launch_counts().items():
+            launches[n] += c
+        res[name] = {"logged": run["logged"], "losses": run["losses"],
+                     "step_ms": run["step_ms"], "chunk_ms": run["chunk_ms"],
+                     "peak_gib": peak, "idle": idle,
+                     "dispatches": [d["steps"] for d in run["dispatches"]],
+                     "wall": run["wall"]}
+        del trainer, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    shutdown()
+    with open(out, "w") as fh:
+        json.dump(res, fh)
+
+
+def moe_train(tmp: str, card: str) -> dict:
+    """Phase 13 (b), (c): moe_train_child in a fresh process; its
+    bootstrap's heartbeat and span and its fits checked here. Returns its
+    flash kernels' launches."""
+    import torch
+
+    hb, traces, out = (os.path.join(tmp, n) for n in ("hb", "trace",
+                                                      "train.json"))
+    with __import__("socket").socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0", "KFTPU_HEARTBEAT_FILE": hb,
+           "KFTPU_TRACE_DIR": traces}
+    gc.collect()
+    torch.cuda.empty_cache()   # the child needs the card's memory
+    print(f"phase 13 (b): {card_used_gib():.2f} GiB of the card in use as "
+          f"the child starts ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated by this process's torch) [{card}]", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.moe_train_child({out!r})"], cwd=here, env=env,
+        capture_output=True, text=True, timeout=MOE_CHILD_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        if line.startswith("  "):
+            print(line, flush=True)
+    if proc.returncode:
+        raise AssertionError(f"phase 13 training child failed "
+                             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    with open(out) as fh:
+        res = json.load(fh)
+    spans = []
+    for name in os.listdir(traces):
+        with open(os.path.join(traces, name)) as fh:
+            spans += [e for e in json.load(fh)["traceEvents"]
+                      if e.get("name") == "rendezvous"]
+    print(f"phase 13 (b): initialize_from_env in a child process over "
+          f"{res['backend']} (world {res['ctx'][1]}, rank {res['ctx'][0]}, "
+          f"{res['ctx'][2]}), rendezvous {res['rendezvous_s']:.3f} s, "
+          f"all_reduce of 1 -> {res['ctx'][3]}; heartbeat phases "
+          f"{res['phases']}, the file {res['heartbeat']['phase']}; rendezvous "
+          f"spans {[e['args'] for e in spans]}; the mesh's fsdp group over "
+          f"{res['mesh_backend']} [{card}]", flush=True)
+    if (res["backend"] != "nccl" or res["phases"][:2] != [
+            "rendezvous", "rendezvous-done"]
+            or res["heartbeat"]["phase"] != "rendezvous-done"
+            or len(spans) != 1 or spans[0]["args"]["backend"] != "nccl"
+            or res["ctx"][3] != 1.0):
+        raise AssertionError(f"phase 13 (b): the bootstrap {res}, {spans}")
+    eager, mesh, graphed = res["eager"], res["mesh"], res["graphed"]
+    tokens = MOE_BATCH * MOE_LEN
+    aux = sum(res["first_aux"])
+    print(f"phase 13 (c): Mixtral-8x7B widths cut to {MOE_TRAIN_LAYERS} "
+          f"layers, {res['params']} params, bf16 compute, batch {MOE_BATCH} "
+          f"x {MOE_LEN} (the chain over ids below {MOE_DATA_VOCAB}), "
+          f"{MOE_STEPS} steps at lr {MOE_LR}; first loss "
+          f"{eager['losses'][0]:.6f} = cross entropy {res['first_ce']:.6f} + "
+          f"aux {res['first_aux']} [{card}]", flush=True)
+    for name, r in (("eager", eager), ("mesh fsdp=1", mesh),
+                    ("graphed", graphed)):
+        ms = r["chunk_ms"] or r["step_ms"]
+        print(f"  {name}: step {ms:.2f} ms ({tokens / ms * 1e3:.1f} tokens/s"
+              f"), peak {r['peak_gib']:.2f} GiB, idle share of a profiled "
+              f"{'chunk' if r['chunk_ms'] else 'step'} {share(r['idle'])}, "
+              f"dispatches {r['dispatches']}, fit {r['wall']:.2f} s, losses "
+              f"{[round(x, 5) for x in r['losses']]} [{card}]", flush=True)
+    losses = eager["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 13: eager losses {losses}")
+    if abs(losses[0] - (res["first_ce"] + aux)) > 1e-3 * abs(losses[0]) \
+            or not aux > 0:
+        raise AssertionError(f"phase 13: the first loss {losses[0]} is not "
+                             f"CE {res['first_ce']} + aux {aux}")
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(mesh["losses"], eager["losses"]))
+    print(f"  mesh fit vs eager: worst relative loss difference {worst:.3e} "
+          f"(limit {MOE_MESH_RTOL}); a world of one, so its steps ran the "
+          f"eager fit's code: no FSDP2 hook and no collective [{card}]",
+          flush=True)
+    if worst > MOE_MESH_RTOL or len(mesh["losses"]) != len(losses):
+        raise AssertionError(f"phase 13: mesh losses {mesh['losses']} vs "
+                             f"{losses}")
+    check_logged_against(
+        {"logged": {int(k): v for k, v in graphed["logged"].items()}},
+        {"logged": {int(k): v for k, v in eager["logged"].items()}},
+        "phase 13 graphed fit", card)
+    print(f"phase 13 (b)-(c): child process {time.perf_counter() - t0:.1f} s"
+          f" [{card}]", flush=True)
+    return res["launches"]
+
+
+def stepwise_forced_gap(model, prompts, tokens, prefill: bool = False
+                        ) -> tuple[float, float]:
+    """teacher_forced_gap as the engine runs an MoE model: each prompt
+    prefilled alone (an MoE block's capacity is per forward) into its row
+    of the batch cache (through the flash kernel with ``prefill``), then
+    the generated tokens read one position at a time (one-token steps
+    route dropless)."""
+    import torch
+
+    from kubeflow_tpu_torch.models.gpt import splice_cache_row
+
+    x = torch.as_tensor(np.stack(prompts), device="cuda").long()
+    y = torch.as_tensor(np.stack(tokens), device="cuda").long()
+    with torch.inference_mode():
+        cache, first = model.init_cache(x.shape[0]), []
+        for r in range(x.shape[0]):
+            row = model.init_cache(1)
+            first.append(model(x[r:r + 1], cache=row,
+                               prefill=prefill)[:, -1:])
+            splice_cache_row(cache, row, r)
+        steps = [torch.cat(first)]
+        for i in range(y.shape[1] - 1):
+            steps.append(model(y[:, i:i + 1], cache=cache))
+        logits = torch.cat(steps, dim=1)
+        top = logits.max(-1).values
+        gap = top - logits.gather(-1, y[..., None])[..., 0]
+        ulp = BF16_ULP * logits.abs().max(-1).values
+    return gap.max().item(), (gap / ulp).max().item()
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """A context in which every MoE forward records its top-k expert
+    choices, (T, K) int64, in call order: a routed forward's from
+    moe._route, a dropless one's as _dropless takes them."""
+    import torch
+
+    from kubeflow_tpu_torch.parallel import moe
+
+    route, dropless, seen = moe._route, moe.MoeMlp._dropless, []
+
+    def route_spy(logits, top_k, capacity):
+        out = route(logits, top_k, capacity)
+        seen.append(out[0])
+        return out
+
+    def dropless_spy(self, xt, logits):
+        seen.append(torch.topk(torch.softmax(logits, dim=-1), self.top_k,
+                               dim=-1).indices)
+        return dropless(self, xt, logits)
+
+    moe._route, moe.MoeMlp._dropless = route_spy, dropless_spy
+    try:
+        yield seen
+    finally:
+        moe._route, moe.MoeMlp._dropless = route, dropless
+
+
+def pinned_moe(mlp, idx, keep, flips: list):
+    """A plain forward for the SwiGLU MoE layer ``mlp`` over (T, K)
+    expert choices ``idx`` kept where ``keep``: every expert run on every
+    token in a loop, the gates its own router's softmax at those choices,
+    renormalised; the combine weights rounded to the activation dtype and
+    the terms summed in float32, as MoeMlp rounds. Appends to ``flips``
+    each token's gap between its own router's k-th and (k+1)-th
+    probabilities and whether that router would choose other experts."""
+    import torch
+    import torch.nn.functional as F
+
+    assert mlp.activation == "swiglu" and not mlp.use_bias
+    k = mlp.top_k
+
+    def forward(x, dropless=False):
+        b, l, h = x.shape
+        dt, xt = x.dtype, x.reshape(b * l, h)
+        probs = torch.softmax(xt.float() @ mlp.router, dim=-1)
+        top = probs.topk(k + 1, dim=-1)
+        own = top.indices[:, :k].sort(-1).values
+        moved = (own != idx.sort(-1).values).any(-1)
+        flips.append((top.values[:, k - 1] - top.values[:, k], moved))
+        gates = probs.gather(1, idx)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        weight = torch.zeros_like(probs).scatter_add(
+            1, idx, gates * keep).to(dt)
+        y = torch.zeros(b * l, h, device=x.device)
+        for e in range(mlp.num_experts):
+            up = xt @ mlp.w_up[e].to(dt)
+            act = F.silu(xt @ mlp.w_gate[e].to(dt)) * up
+            y += weight[:, e, None].float() * (act @ mlp.w_down[e].to(dt)
+                                                ).float()
+        return y.to(dt).reshape(b, l, h)
+
+    return forward
+
+
+def pinned_forced_gap(plain, prompts, tokens, routes
+                      ) -> tuple[float, float, dict]:
+    """teacher_forced_gap on the plain path with no cache: each prompt and
+    its generated tokens read in one dense forward, every MoE layer a
+    ``pinned_moe`` over the expert choices ``routes`` that
+    stepwise_forced_gap recorded (each prompt's routed prefill, then one
+    dropless step at a time). A prompt's choices are kept as its prefill
+    kept them: each expert's first C = ceil(k * prompt * cf / E) in
+    (token-major, then k) order; a generated token's all. Returns (largest
+    gap, in bf16 ulps, {the routings (a token in a layer), those the plain
+    path's own routers would send elsewhere, the largest gap between their
+    k-th and (k+1)-th router probabilities, the median one over all})."""
+    import torch
+
+    rows, n_prompt, n_new = len(prompts), len(prompts[0]), len(tokens[0])
+    layers = [block.moe for block in plain.layers]
+    n = len(layers)
+    flips: list = []
+    for l, mlp in enumerate(layers):
+        k, e = mlp.top_k, mlp.num_experts
+        cap = math.ceil(k * n_prompt * mlp.capacity_factor / e)
+        idx, keep = [], []
+        for r in range(rows):
+            pre = routes[r * n + l]
+            steps = [routes[(rows + i) * n + l][r] for i in range(n_new - 1)]
+            idx.append(torch.cat([pre, torch.stack(steps)]))
+            count, kept = [0] * e, np.ones((n_prompt + n_new - 1, k), bool)
+            for t, choice in enumerate(pre.tolist()):
+                for j, ex in enumerate(choice):
+                    kept[t, j] = count[ex] < cap
+                    count[ex] += 1
+            keep.append(torch.as_tensor(kept, device="cuda"))
+        mlp.forward = pinned_moe(mlp, torch.cat(idx), torch.cat(keep), flips)
+    x = torch.as_tensor(np.stack(prompts), device="cuda").long()
+    y = torch.as_tensor(np.stack(tokens), device="cuda").long()
+    pad, plain.pad_token_id = plain.pad_token_id, -1  # prompts: unpadded
+    try:
+        with torch.inference_mode():
+            logits = plain(torch.cat([x, y[:, :-1]], 1))[:, n_prompt - 1:]
+            top = logits.max(-1).values
+            gap = top - logits.gather(-1, y[..., None])[..., 0]
+            ulp = BF16_ULP * logits.abs().max(-1).values
+    finally:
+        plain.pad_token_id = pad
+        for mlp in layers:
+            del mlp.forward
+    margin = torch.cat([m for m, _ in flips])
+    moved = torch.cat([v for _, v in flips])
+    return gap.max().item(), (gap / ulp).max().item(), {
+        "routings": margin.numel(), "moved": int(moved.sum()),
+        "moved_margin": margin[moved].max().item() if moved.any() else 0.0,
+        "median_margin": margin.median().item()}
+
+
+def moe_serve(card: str) -> dict:
+    """Phase 13 (d): the 4-layer Mixtral-width decoder (bf16 compute, f32
+    parameters, seeded weights held in memory: a 24 GB params.npz round
+    trip is what it skips) served by the continuous-batching engine behind
+    ModelServer, MOE_ROWS requests of MOE_PROMPT tokens from as many
+    threads, MOE_NEW new tokens each. Returns flash_fwd's launches."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from kubeflow_tpu_torch.kernels import KERNELS
+    from kubeflow_tpu_torch.models.gpt import GPTLM
+    from kubeflow_tpu_torch.parallel import moe
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.model import TorchModel
+    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.tracing import Tracer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mixtral_cfg(MOE_SERVE_LAYERS, dtype="bfloat16", max_len=256)
+    t0 = time.perf_counter()
+    model = GPTLM(cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(SEED + 14)).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(SEED + 15)
+    prompts = [rng.randint(1, cfg.vocab_size, MOE_PROMPT).astype(np.int32)
+               for _ in range(MOE_ROWS)]
+    with torch.inference_mode():  # cuBLAS and the kernels set up here
+        model(torch.as_tensor(prompts[0][None], device="cuda").long(),
+              cache=model.init_cache(1), prefill=True)
+        model(torch.ones((MOE_ROWS, 1), dtype=torch.long, device="cuda"),
+              cache=model.init_cache(MOE_ROWS))
+    tracer, samples = Tracer(), Samples()
+    engine = ContinuousBatcher(model, max_rows=MOE_ROWS,
+                               default_max_new_tokens=MOE_NEW,
+                               tracer=tracer, tsdb=samples)
+    served = TorchModel("mixtral", ".", device="cuda")
+    served.config = {"family": "gpt-lm", "input_dtype": "int32",
+                     "input_shape": [1, MOE_PROMPT],
+                     "generate": {"continuous": True, "temperature": 0.0,
+                                  "max_new_tokens": MOE_NEW}}
+    served._engine, served.ready = engine.start(), True
+    srv = ModelServer([served], port=0, host="127.0.0.1")
+    srv.start()
+    print(f"phase 13 (d): Mixtral-8x7B widths cut to {MOE_SERVE_LAYERS} "
+          f"layers, {n_params} params (f32), bf16 compute, flash prefill; "
+          f"engine {MOE_ROWS} rows behind ModelServer, up in "
+          f"{time.perf_counter() - t0:.2f}s [{card}]", flush=True)
+    results = [None] * MOE_ROWS
+    try:
+        def client(i):
+            results[i] = post(f"{srv.url}/v1/models/mixtral:predict",
+                              {"instances": [prompts[i].tolist()]})
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        moe.DISPATCH_CALLS.update(routed=0, dropless=0)
+        t_run = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(MOE_ROWS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t_run
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        calls = dict(moe.DISPATCH_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ticks = engine.step_count
+    finally:
+        srv.stop()
+        served.close()
+    tokens = []
+    for i, (code, body, _) in enumerate(results):
+        toks = np.asarray(body.get("predictions"))
+        if code != 200 or toks.shape != (1, MOE_NEW) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"phase 13 (d): request {i}: {code} {body}")
+        tokens.append(toks[0])
+    prefills = sum(s["attrs"]["tokens_reused"] == 0
+                   for s in tracer.snapshot()
+                   if s["name"] == "engine.prefill_chunk")
+    ttft = np.array([body["timing"]["ttft_s"] for _, body, _ in results])
+    tick = np.array([v for name, v, _ in samples.rows
+                     if name == "serving.decode_tick_s"]) * 1e3
+    # the engine's arithmetic without the engine: each prompt prefilled
+    # alone through the flash kernel, the tokens decoded one at a time
+    with recorded_routes() as routes:
+        gap, ulps = stepwise_forced_gap(model, prompts, tokens, prefill=True)
+    # the plain path: the same weights, plain attention everywhere. With
+    # its own routing (read, not held) a token whose router logits are
+    # near a tie picks another expert where the prefill's rounding
+    # differs; held, with each MoE layer a plain loop over the experts
+    # the engine's arithmetic chose
+    plain = model.with_compute_dtype("bfloat16")
+    for block in plain.layers:
+        block.attention.cfg = dataclasses.replace(cfg, attention="dense")
+        block.attention.attn_fn = None
+    own_gap, own_ulps = stepwise_forced_gap(plain, prompts, tokens)
+    plain_gap, plain_ulps, flips = pinned_forced_gap(plain, prompts, tokens,
+                                                     routes)
+    weight_bytes = 4 * n_params
+    floor = (weight_bytes + 2 * 2 * n_params) / PEAKS["sxm"]["bytes"] * 1e3
+    total = MOE_ROWS * MOE_NEW
+    print(f"  {MOE_ROWS} requests: {wall:.3f} s wall, TTFT (engine) p50 "
+          f"{np.median(ttft) * 1e3:.2f} ms, max {ttft.max() * 1e3:.2f} ms, "
+          f"{(total - MOE_ROWS) / wall:.1f} decode tokens/s, decode tick "
+          f"median {np.median(tick):.2f} ms over {len(tick)}; decode "
+          f"dispatches {ticks}, prefills from position 0 {prefills}; peak "
+          f"{peak:.2f} GiB; launches {launches} [{card}]", flush=True)
+    print(f"  what bounds a tick: it reads every f32 weight and writes and "
+          f"reads its bf16 cast ({(weight_bytes + 4 * n_params) / 1e9:.1f} "
+          f"GB), at least {floor:.2f} ms at the HBM rate, against the "
+          f"{np.median(tick):.2f} ms median [{card}]", flush=True)
+    print(f"  MoE forwards: routed {calls['routed']} (= {MOE_SERVE_LAYERS} x "
+          f"{prefills} prefills), dropless {calls['dropless']} (= "
+          f"{MOE_SERVE_LAYERS} x {ticks} ticks) [{card}]", flush=True)
+    print(f"  every greedy token within {plain_ulps:.2f} bf16 ulps of its "
+          f"step's max under teacher forcing on the plain path (dense "
+          f"attention, no cache, each MoE layer a plain loop over the "
+          f"experts the engine's arithmetic chose; limit {BF16_ULPS}; "
+          f"largest gap {plain_gap:.4f}); its own routers would choose "
+          f"other experts in {flips['moved']} of {flips['routings']} "
+          f"routings (a token in a layer), their k-th and (k+1)-th router "
+          f"probabilities at most {flips['moved_margin']:.3e} apart (median "
+          f"over all routings {flips['median_margin']:.3e}); with that "
+          f"routing "
+          f"(read, not held) {own_ulps:.2f} ulps, largest gap "
+          f"{own_gap:.4f}; against the engine's arithmetic run a request "
+          f"at a time {ulps:.2f} ulps (limit {BF16_ULPS}; largest gap "
+          f"{gap:.4f}) [{card}]", flush=True)
+    if (prefills != MOE_ROWS
+            or launches["flash_fwd"] != MOE_SERVE_LAYERS * prefills
+            or calls != {"routed": MOE_SERVE_LAYERS * prefills,
+                         "dropless": MOE_SERVE_LAYERS * ticks}
+            or not ulps <= BF16_ULPS or not plain_ulps <= BF16_ULPS):
+        raise AssertionError(
+            f"phase 13 (d): prefills {prefills}, launches {launches}, MoE "
+            f"calls {calls} over {ticks} ticks, {ulps} ulps, on the plain "
+            f"path {plain_ulps} ulps")
+    del plain, model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd": launches["flash_fwd"]}
+
+
+def phase_moe_train(card: str) -> tuple[dict, float]:
+    """Phase 13 (b), (c), run first, while this process holds nothing on
+    the card: the training child needs 60 of its 79 GiB. Returns the
+    child's flash kernel launches and the seconds it took."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = moe_train(tmp, card)
+    return launches, time.perf_counter() - t0
+
+
+def phase_moe(peaks, card: str, trained: tuple[dict, float]) -> dict:
+    """Phase 13: (a) the D=128 kernels and (d) the Mixtral-width MoE
+    decoder served, beside ``trained``, phase_moe_train's launches and
+    seconds ((b), (c)). Returns each flash kernel's launches over the
+    path's runs."""
+    t_phase = time.perf_counter()
+    moe_kernels(peaks, card)
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    for name, n in trained[0].items():
+        launches[name] += n
+    launches["flash_fwd"] += moe_serve(card)["flash_fwd"]
+    print(f"phase 13: sharded and MoE training and MoE serving in "
+          f"{time.perf_counter() - t_phase + trained[1]:.1f}s ((b)-(c) "
+          f"{trained[1]:.1f} s, first); its path's launches {launches} "
+          f"[{card}]", flush=True)
+    for name in FLASH_KERNELS:
+        if not launches[name]:
+            raise AssertionError(f"phase 13's path never launched {name}")
+    return launches
 
 
 def main() -> int:
@@ -4865,6 +5552,15 @@ def main() -> int:
         return 2
     from kubeflow_tpu_torch.kernels import KERNELS, build_all
     from kubeflow_tpu_torch.kernels.build import report_path, sources
+
+    t_main = time.perf_counter()
+    t_lap = [t_main]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"  [{what} done: {now - t_lap[0]:.1f} s, the script "
+              f"{now - t_main:.1f} s so far]", flush=True)
+        t_lap[0] = now
 
     card = card_line()
     print(card, flush=True)
@@ -4881,30 +5577,48 @@ def main() -> int:
         report = report_path(src)
         if report.exists():
             print(f"  {src}: {ptxas_summary(report.read_text())}")
-    spill64, routes = tensor_core_report(card)
+    spills, routes = tensor_core_report(card)
+    moe_trained = phase_moe_train(card)
+    lap("phase 13 (b)-(c)")
 
     timings = {"flash_fwd": phase_kernels(peaks, card, routes)}
+    lap("phase 3")
     serve_launches = phase_serve(card)
+    lap("phase 4")
     print(f"  serving path: flash_fwd launches {serve_launches} [{card}]",
           flush=True)
     engine_launches, plain = phase_engine(peaks, card)
+    lap("phase 7")
     print(f"  engine path: flash_fwd launches {engine_launches} [{card}]",
           flush=True)
     timings.update(phase_backward(peaks, card, routes))
+    lap("phase 5")
     launches, step_ms = phase_train(card)
+    lap("phase 6")
     phase_restart_warm(card)
+    lap("phase 6 restart-warm")
     family_launches = phase_families(card)
+    lap("phase 10")
     # phases 8 and 9 come after phase 6: run between phases 7 and 5, phase
     # 8 was followed by torch.profiler traces that lost a kernel's launches
     # at the training shape (see PERF.md, Open questions)
     spec_launches, fleet_ticks = phase_spec_fleet(peaks, card, plain)
+    lap("phase 8")
     print(f"  speculative and fleet paths: flash_fwd launches "
           f"{spec_launches} [{card}]", flush=True)
     pod_launches = phase_pods(card, plain, fleet_ticks)
+    lap("phase 9")
     print(f"  pod path: flash_fwd launches {pod_launches} (in the prefill "
           f"pod's process) [{card}]", flush=True)
     artifact_launches = phase_artifacts(card)
+    lap("phase 11")
     lifecycle_launches, dropout_records = phase_lifecycle(peaks, card)
+    lap("phase 12")
+    print(f"  the bf16 tensor-core instantiations at D = 128 (phase 13's "
+          f"head_dim) spill {spills.get(128, 0)} bytes (phase 2's rows) "
+          f"[{card}]", flush=True)
+    moe_launches = phase_moe(peaks, card, moe_trained)
+    lap("phase 13")
     engine_launches += spec_launches + pod_launches + artifact_launches
     from kubeflow_tpu_torch.models.gpt import GPTConfig
 
@@ -4926,9 +5640,9 @@ def main() -> int:
                       for n, t in timings.items()) + f" [{card}]",
           flush=True)
 
-    if spill64:
-        raise AssertionError(f"the bf16 tensor-core kernels spill {spill64} "
-                             "bytes at D = 64")
+    if spills.get(64):
+        raise AssertionError(f"the bf16 tensor-core kernels spill "
+                             f"{spills[64]} bytes at D = 64")
 
     # flash_fwd's launches: the training path's and the engine paths'; every
     # kernel's: phase 10's families
@@ -4946,6 +5660,11 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     print(f"launches of the LLM lifecycle's path (phase 12): "
           f"{lifecycle_launches} [{card}]", flush=True)
+    for name, n in moe_launches.items():
+        launches[name] += n
+    print(f"launches of the sharded and MoE paths (phase 13): "
+          f"{moe_launches}; the whole script {time.perf_counter() - t_main:.1f}"
+          f" s [{card}]", flush=True)
     timings.update(dropout_records)   # the flash kernels' summary is above
     record = {"kernels": [{
         "name": name,

@@ -10,7 +10,8 @@ weights to both implementations.
 GPT (``gpt_params_from_flax`` / ``flax_params_from_gpt``): a flax kernel is
 (in..., out...) and a torch Linear weight is (out, in), so kernels flatten
 and transpose; everything else keeps its values and only flattens where flax
-splits heads.
+splits heads. An MoE block's ``moe/`` parameters keep flax's stacked layouts
+(``w_up`` (E, H, F), ``w_down`` (E, F, H)) on both sides.
 
 The other families — ResNet, MNIST, BERT, ViT (``params_from_flax`` /
 ``flax_params_from``) — keep flax's names and layouts in the port
@@ -51,6 +52,20 @@ def _param_map(cfg: GPTConfig):
         if cfg.use_bias:
             out.append((f"{fk}/bias", f"{tk}.bias", out_shape, 0))
 
+    def moe(fk, tk):
+        # MoeMlp keeps flax's stacked layouts and creation order
+        e, mlp = cfg.moe_experts, cfg.mlp_dim
+        shapes = [("router", (hid, e)), ("w_up", (e, hid, mlp)),
+                  ("b_up", (e, mlp)), ("w_down", (e, mlp, hid)),
+                  ("b_down", (e, hid)), ("w_gate", (e, hid, mlp)),
+                  ("b_gate", (e, mlp))]
+        for name, shape in shapes:
+            if name.startswith("b_") and not cfg.use_bias:
+                continue
+            if name.endswith("_gate") and cfg.activation != "swiglu":
+                continue
+            out.append((f"{fk}/{name}", f"{tk}.{name}", shape, 0))
+
     for i in range(cfg.num_layers):
         f, t = f"layer_{i}", f"layers.{i}"
         norm(f"{f}/ln_attn", f"{t}.ln_attn")
@@ -62,6 +77,9 @@ def _param_map(cfg: GPTConfig):
         dense(f"{f}/attention/attn_out", f"{t}.attention.attn_out",
               (heads, hd), (hid,))
         norm(f"{f}/ln_mlp", f"{t}.ln_mlp")
+        if cfg.moe_experts:
+            moe(f"{f}/moe", f"{t}.moe")
+            continue
         if cfg.activation == "swiglu":
             dense(f"{f}/mlp_gate", f"{t}.mlp_gate", (hid,), (cfg.mlp_dim,))
         dense(f"{f}/mlp_up", f"{t}.mlp_up", (hid,), (cfg.mlp_dim,))
@@ -108,6 +126,30 @@ def flax_params_from_gpt(state_dict: dict[str, torch.Tensor],
         a = state_dict[tk].detach().to("cpu", torch.float32).numpy()
         flat[fk] = np.ascontiguousarray(a.T if n_in else a).reshape(shape)
     return flat
+
+
+def flax_layout(module: torch.nn.Module
+                ) -> dict[str, tuple[str, tuple, list[int]]]:
+    """{parameter name: (flax path, flax shape, the port dim each flax dim
+    lies in)} for a port model: the partitioner derives a parameter's spec
+    on its flax path and shape (``parallel/partitioner.py``), and the dims
+    carry the spec over to the port's layout. A GPT kernel's input dims
+    lie in the torch weight's dim 1 and its output dims in dim 0; the
+    other families keep flax's layouts."""
+    cfg = getattr(module, "cfg", None)
+    if isinstance(cfg, GPTConfig) and hasattr(module, "layers"):
+        out = {}
+        for fk, tk, shape, n_in in _param_map(cfg):
+            if n_in:
+                dims = [1] * n_in + [0] * (len(shape) - n_in)
+            elif fk.endswith("/bias"):
+                dims = [0] * len(shape)   # flattened where flax splits heads
+            else:
+                dims = list(range(len(shape)))
+            out[tk] = (fk, shape, dims)
+        return out
+    return {name: (flax_key(name), tuple(p.shape), list(range(p.ndim)))
+            for name, p in module.named_parameters()}
 
 
 BATCH_STATS = "batch_stats/"

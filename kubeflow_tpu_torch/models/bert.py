@@ -4,7 +4,7 @@ Post-LN encoder blocks with pluggable attention: "dense" (this file, with
 attention dropout under a per-block device seed) or "flash"
 (``parallel/ring_attention.flash_attention``: on the card the hand-written
 kernels, non-causal, under the padding bias); "ring"/"ulysses" shard the
-sequence over a device mesh and come with the parallelism slice. Padding is
+sequence over a device mesh and are not ported yet. Padding is
 derived inside the model (``pad_token_id``), as an additive −1e9 bias of
 shape (B, 1, 1, L).
 
@@ -14,10 +14,11 @@ each layer computes in ``cfg.dtype``. ``train=True`` applies dropout at
 ``cfg.dropout_rate`` with masks that are functions of device seeds
 (``layers.dropout``; the hand-written kernel on the card), one per block
 and one each for the embedding and the pooler, taken from the step's
-``layers.DropoutSeeds`` or drawn from a CPU generator. The JAX package's
-``constrain`` is a sharding pin that is a no-op without a mesh; the port has
-no mesh yet, so it has no counterpart. GPT imports ``_resolve_attention``
-from here.
+``layers.DropoutSeeds`` or drawn from a CPU generator. With
+``moe_experts`` every block's MLP is an ``MoeMlp`` (``parallel/moe.py``).
+The JAX package's ``constrain`` pins activations to the batch split for
+XLA; a gang member here holds its own rows only, so it has no
+counterpart. GPT imports ``_resolve_attention`` from here.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kubeflow_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
+from kubeflow_tpu_torch.parallel.moe import MOE_PARTITION_RULES, MoeMlp
+from kubeflow_tpu_torch.parallel.partitioner import P
 from kubeflow_tpu_torch.models.layers import (
     DTYPES,
     Dense,
@@ -44,6 +48,19 @@ from kubeflow_tpu_torch.models.layers import (
 )
 from kubeflow_tpu_torch.train.data import IGNORE_LABEL
 from kubeflow_tpu_torch.utils.device import select_device
+
+#: the JAX package's rules, on flax paths (``parallel/partitioner.py``)
+PARTITION_RULES: list[tuple[str, P]] = [
+    (r"(query|key|value)/kernel$", P(AXIS_FSDP, AXIS_MODEL)),
+    (r"attn_out/kernel$", P(AXIS_MODEL, AXIS_FSDP)),
+    (r"mlp_up/kernel$", P(AXIS_FSDP, AXIS_MODEL)),
+    (r"mlp_down/kernel$", P(AXIS_MODEL, AXIS_FSDP)),
+    (r"token_embed/embedding$", P(AXIS_MODEL, AXIS_FSDP)),
+    (r"(position_embed|type_embed)/embedding$", P(None, AXIS_FSDP)),
+    (r"pooler/kernel$", P(AXIS_FSDP, AXIS_MODEL)),
+    (r"mlm_dense/kernel$", P(AXIS_FSDP, AXIS_MODEL)),
+    *MOE_PARTITION_RULES,
+]
 
 
 def dense_attention(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
@@ -70,8 +87,9 @@ def _resolve_attention(kind: str) -> Callable:
         return flash_attention
     if kind in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"{kind} attention shards the sequence over a device mesh; it is "
-            "ported with the parallelism slice (ROADMAP Queue A item 8)")
+            f"{kind} attention shards the sequence over the context axis of "
+            "a device mesh, which the port does not execute yet (ROADMAP "
+            "Queue A item 8)")
     raise ValueError(f"unknown attention kind {kind!r}")
 
 
@@ -90,7 +108,7 @@ class BertConfig:
     attention_block: int = 128
     # recompute each encoder block in the backward (torch.utils.checkpoint)
     remat: bool = False
-    moe_experts: int = 0        # > 0: later slice
+    moe_experts: int = 0        # > 0: every block's MLP an MoeMlp
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
 
@@ -159,8 +177,14 @@ class BertLayer(nn.Module):
         self.attention = SelfAttention(c, device)
         self.ln_attn = LayerNorm(c.hidden_size, compute_dtype=dt,
                                  device=device)
-        self.mlp_up = Dense(c.hidden_size, c.mlp_dim, True, dt, device)
-        self.mlp_down = Dense(c.mlp_dim, c.hidden_size, True, dt, device)
+        if c.moe_experts:
+            self.moe = MoeMlp(c.hidden_size, c.mlp_dim, c.moe_experts,
+                              c.moe_top_k, c.moe_capacity_factor,
+                              device=device)
+        else:
+            self.mlp_up = Dense(c.hidden_size, c.mlp_dim, True, dt, device)
+            self.mlp_down = Dense(c.mlp_dim, c.hidden_size, True, dt,
+                                  device)
         self.ln_mlp = LayerNorm(c.hidden_size, compute_dtype=dt,
                                 device=device)
 
@@ -173,8 +197,11 @@ class BertLayer(nn.Module):
         rate = self.cfg.dropout_rate if train else 0.0
         y = self.attention(x, bias, train, seed)
         x = self.ln_attn(x + dropout(y, rate, seed, site=1))
-        y = F.gelu(self.mlp_up(x), approximate="tanh")  # flax nn.gelu
-        y = self.mlp_down(y)
+        if self.cfg.moe_experts:
+            y = self.moe(x)
+        else:
+            y = F.gelu(self.mlp_up(x), approximate="tanh")  # flax nn.gelu
+            y = self.mlp_down(y)
         return self.ln_mlp(x + dropout(y, rate, seed, site=2))
 
 
@@ -228,10 +255,6 @@ class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, device: str | torch.device = "cuda",
                  token_embed: VocabEmbed | None = None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0: the MoE encoder is ported with the "
-                "parallelism slice (ROADMAP Queue A item 8)")
         _resolve_attention(cfg.attention)  # refuses ring/ulysses up front
         dev = select_device(device)
         self.cfg = cfg
@@ -361,3 +384,7 @@ def masked_lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor):
     per_ex = (per_tok * w).sum(-1) / denom
     acc = ((logits.argmax(-1) == safe).float() * w).sum(-1) / denom
     return per_ex, acc
+
+
+for _cls in (BertEncoder, BertForSequenceClassification, BertForMaskedLM):
+    _cls.PARTITION_RULES = PARTITION_RULES

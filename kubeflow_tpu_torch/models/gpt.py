@@ -40,8 +40,31 @@ from kubeflow_tpu_torch.models.layers import (
     linear_then_bias,
     remat,
 )
+from kubeflow_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
+from kubeflow_tpu_torch.parallel.moe import MOE_PARTITION_RULES, MoeMlp
+from kubeflow_tpu_torch.parallel.partitioner import P
 from kubeflow_tpu_torch.parallel.rope import apply_rope
 from kubeflow_tpu_torch.utils.device import select_device
+
+#: the JAX package's rules, on flax paths (``parallel/partitioner.py``)
+PARTITION_RULES: list[tuple[str, P]] = [
+    (r"(query|key|value)/kernel$", P(AXIS_FSDP, AXIS_MODEL)),
+    (r"attn_out/kernel$", P(AXIS_MODEL, AXIS_FSDP)),
+    (r"(mlp_up|mlp_gate)/kernel$", P(AXIS_FSDP, AXIS_MODEL)),
+    (r"mlp_down/kernel$", P(AXIS_MODEL, AXIS_FSDP)),
+    (r"token_embed/embedding$", P(AXIS_MODEL, AXIS_FSDP)),
+    (r"lm_head/kernel$", P(AXIS_FSDP, AXIS_MODEL)),
+    (r"position_embed/embedding$", P(None, AXIS_FSDP)),
+    *MOE_PARTITION_RULES,
+]
+
+# Decode blocks at or under this many tokens route MoE DROPLESS (every
+# expert on every token: row-independent, exact for continuous batching);
+# longer blocks (prompt prefill) keep the routed capacity dispatch, whose
+# FLOPs scale with top_k, not num_experts. The engine prefills batch-1, so
+# a routed prefill is row-independent there, and solo generate() takes the
+# same branch per shape.
+MOE_DROPLESS_MAX_LEN = 16
 
 
 @dataclass(frozen=True)
@@ -398,6 +421,13 @@ class GPTBlock(nn.Module):
         self.ln_attn = DecoderNorm(c, device)
         self.attention = CausalSelfAttention(c, device)
         self.ln_mlp = DecoderNorm(c, device)
+        if c.moe_experts:
+            # the Mixtral shape: every block's MLP an MoeMlp of experts
+            # with the block's activation and bias setting
+            self.moe = MoeMlp(c.hidden_size, c.mlp_dim, c.moe_experts,
+                              c.moe_top_k, c.moe_capacity_factor,
+                              c.activation, c.use_bias, device=device)
+            return
         if c.activation == "swiglu":
             self.mlp_gate = Dense(c.hidden_size, c.mlp_dim, c.use_bias, dt,
                                   device)
@@ -410,11 +440,16 @@ class GPTBlock(nn.Module):
         """seed (training with dropout, a 0-dim int64 on x's device): the
         block's masks are functions of it — dense attention's
         probabilities' (site 0), the attention output's (1) and the MLP
-        output's (2)."""
+        output's (2). An MoE block routes a decode block of at most
+        MOE_DROPLESS_MAX_LEN tokens dropless, anything else by capacity."""
         c = self.cfg
         y = self.attention(self.ln_attn(x), bias, cache, layer, prefill, seed)
         x = x + dropout(y, c.dropout_rate, seed, site=1)
         h = self.ln_mlp(x)
+        if c.moe_experts:
+            h = self.moe(h, dropless=cache is not None
+                         and h.shape[1] <= MOE_DROPLESS_MAX_LEN)
+            return x + dropout(h, c.dropout_rate, seed, site=2)
         if c.activation == "swiglu":
             h = F.silu(self.mlp_gate(h)) * self.mlp_up(h)
         else:
@@ -434,14 +469,11 @@ class GPTLM(nn.Module):
     #: the Trainer's AUTO compute dtype on the card (its counterpart in the
     #: JAX package: PREFERRED_COMPUTE_DTYPE = jnp.bfloat16)
     PREFERRED_COMPUTE_DTYPE = "bfloat16"
+    PARTITION_RULES = PARTITION_RULES
 
     def __init__(self, cfg: GPTConfig, pad_token_id: int = 0,
                  device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0: the MoE decoder is ported with the "
-                "parallelism slice (ROADMAP Queue A item 8)")
         self.cfg = cfg
         self.pad_token_id = pad_token_id
         dev, dt = select_device(device), cfg.torch_dtype
@@ -480,12 +512,12 @@ class GPTLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator,
                      std: float = 0.02) -> "GPTLM":
-        """Seeded random init: N(0, std) weights and embeddings, zero
-        biases, unit norm scales. Draws on the generator's device (CPU for
-        a CPU generator) in parameter order, so a seed gives the same
-        weights on any card."""
+        """Seeded random init: N(0, std) weights, embeddings, MoE routers
+        and experts, zero biases, unit norm scales. Draws on the generator's
+        device (CPU for a CPU generator) in parameter order, so a seed
+        gives the same weights on any card."""
         for name, p in self.named_parameters():
-            if name.endswith("bias"):
+            if name.endswith("bias") or ".moe.b_" in name:
                 p.zero_()
             elif ".ln_" in name or name.startswith("ln_"):
                 p.fill_(1.0)

@@ -18,6 +18,7 @@ import copy
 import dataclasses
 import itertools
 import math
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -123,7 +124,12 @@ def remat(block: nn.Module, *args):
     parameter tensors this forward saw: under ``torch.func.functional_call``
     (``train/lora.py``'s merged weights) the module's own parameters are
     back in place by the time the backward runs, so the tensors are bound
-    again for the recompute. A seed among ``args`` redraws its masks."""
+    again for the recompute; an FSDP2 unit (``parallel/sharding.py``)
+    gathers its own parameters again instead. A seed among ``args``
+    redraws its masks."""
+    fsdp = sys.modules.get("torch.distributed.fsdp")  # loaded if in use
+    if fsdp is not None and isinstance(block, fsdp.FSDPModule):
+        return checkpoint(block, *args, use_reentrant=False)
     tensors = dict(block.named_parameters())
 
     def run(*a):
@@ -277,10 +283,16 @@ def init_module_weights(module: nn.Module,
     """Seeded random init of every layer of ``module`` with flax's defaults:
     Dense and conv kernels lecun-normal over their fan-in, embeddings a
     truncated normal of variance 1/features, biases 0, norm scales 1 (a
-    BatchNorm made with ``zero_scale`` 0). Draws in module order on the
+    BatchNorm made with ``zero_scale`` 0), an MoE block's router and
+    experts as ``MoeMlp.init_weights``. Draws in module order on the
     generator's device (CPU for a CPU generator), so a seed gives the same
     weights on any card. Parameters of other modules are left as they are."""
+    from kubeflow_tpu_torch.parallel.moe import MoeMlp
+
     for m in module.modules():
+        if isinstance(m, MoeMlp):
+            m.init_weights(generator)
+            continue
         if isinstance(m, DenseGeneral):
             _lecun_normal_(m.kernel, math.prod(m.in_shape), generator)
         elif isinstance(m, Conv):

@@ -15,6 +15,8 @@ Retention follows orbax's CheckpointManager as the JAX package configures
 it: the ``max_to_keep`` newest steps, or with ``keep_best_metric`` the
 ``max_to_keep`` best by that metric plus every metric-less (rescue) step;
 a save at or below the newest step is skipped. Saves are synchronous.
+In a gang every member calls ``save`` (a sharded state gathers its full
+tensors then) and rank 0 writes; every member restores from the files.
 """
 
 from __future__ import annotations
@@ -110,13 +112,20 @@ class Checkpointer:
                 f"keep_best_metric {self.keep_best_metric!r} not in metrics "
                 f"{sorted(metrics)} — fix TrainerConfig.keep_best_metric"
             )
+        rank = _gang_rank()
+        if rank is not None:
+            _barrier()  # every member reads the same newest step
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False
+        payload = state.state_dict()  # a sharded state gathers here
+        if rank:
+            _barrier()  # rank 0 writes; the step is committed after this
+            return True
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
         if metrics is not None:
             with open(os.path.join(tmp, METRICS_FILE), "w",
                       encoding="utf-8") as fh:
@@ -125,6 +134,8 @@ class Checkpointer:
         with self._mu:
             self._write_manifest(step)
             self._collect_garbage()
+        if rank is not None:
+            _barrier()
         return True
 
     def _collect_garbage(self) -> None:
@@ -263,6 +274,23 @@ class Checkpointer:
                 return False
             ckpt_verify_bump("steps_quarantined_total")
         return True
+
+
+def _gang_rank() -> int | None:
+    """This process's rank in a live torch.distributed gang of more than
+    one, else None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.get_rank()
+    return None
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    dist.barrier()
 
 
 def _sha256(path: str) -> str:

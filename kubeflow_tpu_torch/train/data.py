@@ -6,7 +6,8 @@ them (every dataset, ``mask_tokens_for_mlm`` and ``batches`` give
 bit-identical arrays),
 and moved to the model's device at the step: pinned host memory and
 ``non_blocking`` copies on a card, so the copy of the next batch overlaps the
-current step.
+current step. A gang's processes load disjoint shard files
+(``save_dataset_shards``/``load_dataset_shards``, the JAX package's format).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Iterator
 
 import numpy as np
@@ -208,13 +210,27 @@ def to_device(batch, device: torch.device):
 
 
 def prefetch_to_device(it: Iterator, device: torch.device,
-                       size: int = 2) -> Iterator:
+                       size: int = 2, mesh=None,
+                       process_local: bool = False) -> Iterator:
     """Double-buffering host->device prefetch: the copy of the next batch
     is enqueued before the current one is handed over, so it overlaps the
-    step (``size=2`` is classic double buffering)."""
+    step (``size=2`` is classic double buffering). With a gang's ``mesh``
+    only this rank's rows are copied (``parallel/sharding.shard_batch``:
+    the global batch split over the data-like axes, or with
+    ``process_local`` the process's own rows as they are)."""
     buf: deque = deque()
     for b in it:
-        buf.append(to_device(b, device))
+        if mesh is not None:
+            from kubeflow_tpu_torch.parallel.sharding import (
+                LocalBatch,
+                shard_batch,
+            )
+
+            b = LocalBatch(to_device(shard_batch(b, mesh, process_local),
+                                     device))
+        else:
+            b = to_device(b, device)
+        buf.append(b)
         if len(buf) >= size:
             yield buf.popleft()
     while buf:
@@ -349,3 +365,76 @@ class AsyncLoader:
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
+
+
+# ------------------------------------------------------------- sharded files
+
+def save_dataset_shards(ds: Dataset, out_dir: str, num_shards: int = 8) -> str:
+    """Write a Dataset as numbered .npz shards + manifest: the on-disk
+    contract a gang loads per process (the unit is a shard FILE, so no two
+    processes read the same rows). The JAX package's format."""
+    import json
+
+    d = Path(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    n = len(ds.x_train)
+    num_shards = max(1, min(num_shards, n))
+    bounds = np.linspace(0, n, num_shards + 1, dtype=int)
+    for i in range(num_shards):
+        lo, hi = bounds[i], bounds[i + 1]
+        np.savez(d / f"train-{i:05d}.npz",
+                 x=ds.x_train[lo:hi], y=ds.y_train[lo:hi])
+    np.savez(d / "test.npz", x=ds.x_test, y=ds.y_test)
+    (d / "manifest.json").write_text(json.dumps({
+        "num_shards": num_shards,
+        "num_classes": int(ds.num_classes),
+        "n_train": int(n),
+    }))
+    return str(d)
+
+
+def load_dataset_shards(data_dir: str, process_id: int | None = None,
+                        num_processes: int | None = None) -> Dataset:
+    """Load a sharded dataset, taking only THIS process's shard files
+    (round-robin by index) in a gang, each process a disjoint subset.
+    Defaults to the live ``torch.distributed`` gang's rank and size; (0,
+    1) outside one. Every process ends with the same row count (the
+    smallest share), so the gang's step counts stay in lockstep. The test
+    split is replicated to every process."""
+    import json
+
+    if (process_id is None) != (num_processes is None):
+        raise ValueError(
+            "pass BOTH process_id and num_processes, or neither (the live "
+            "torch.distributed gang)"
+        )
+    if process_id is None:
+        import torch.distributed as dist
+
+        gang = dist.is_available() and dist.is_initialized()
+        process_id = dist.get_rank() if gang else 0
+        num_processes = dist.get_world_size() if gang else 1
+    d = Path(data_dir)
+    meta = json.loads((d / "manifest.json").read_text())
+    num_shards = int(meta["num_shards"])
+    if num_shards < num_processes:
+        raise ValueError(
+            f"{num_shards} shard(s) cannot feed {num_processes} processes; "
+            f"re-shard with num_shards >= the gang size"
+        )
+    bounds = np.linspace(0, int(meta["n_train"]), num_shards + 1, dtype=int)
+    sizes = bounds[1:] - bounds[:-1]
+    limit = min(
+        int(sizes[p::num_processes].sum()) for p in range(num_processes)
+    )
+    xs, ys = [], []
+    for i in range(process_id, num_shards, num_processes):
+        with np.load(d / f"train-{i:05d}.npz") as z:
+            xs.append(z["x"])
+            ys.append(z["y"])
+    with np.load(d / "test.npz") as test:
+        x_test, y_test = test["x"], test["y"]
+    return Dataset(
+        np.concatenate(xs)[:limit], np.concatenate(ys)[:limit],
+        x_test, y_test, int(meta["num_classes"]),
+    )

@@ -40,6 +40,19 @@ the eager step's masks. Capture follows one warm-up step whose effects on
 the parameters, buffers, optimizer state and step are undone. On the CPU a
 chunk is k ``train_step``s in order.
 
+Under a mesh (``TrainerConfig.mesh``, a ``MeshConfig`` over the ranks of
+a ``torch.distributed`` gang, ``runtime.initialize_from_env``) the step is
+the JAX package's sharded step: each rank computes the rows of the global
+batch the data-like axes (data, fsdp, expert) give it (``data_placement=
+"replicated"``: every process holds the whole batch; ``"process_local"``:
+each holds only its own rows, ``train/data.load_dataset_shards``), and
+``parallel/sharding.GangLayout`` places the parameters by the partitioner's
+specs — FSDP2 over ``fsdp``, the stacked experts over ``expert`` — and
+reduces the gradients over the data-like ranks. The logged loss and
+accuracy are the gang's means. Auxiliary losses a model sows (the MoE
+load balance, ``parallel/moe.collect_losses``) are added to the objective,
+as the JAX Trainer adds its ``losses`` collection.
+
 What ``fit`` cannot honour yet raises NotImplementedError naming its
 ROADMAP entry; it is never silently ignored.
 """
@@ -70,6 +83,16 @@ from kubeflow_tpu_torch.models.layers import (
     DropoutSeeds,
     as_torch_dtype,
 )
+from kubeflow_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
+from kubeflow_tpu_torch.parallel.moe import collect_losses
+from kubeflow_tpu_torch.parallel.partitioner import Partitioner
+from kubeflow_tpu_torch.parallel.sharding import (
+    GangLayout,
+    LocalBatch,
+    local_tensor,
+    refuse_unexecuted,
+    shard_batch,
+)
 from kubeflow_tpu_torch.train import metrics as metrics_lib
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
 from kubeflow_tpu_torch.train.data import (
@@ -83,6 +106,9 @@ from kubeflow_tpu_torch.train.data import (
 from kubeflow_tpu_torch.tracing.core import init_worker_from_env
 from kubeflow_tpu_torch.utils import compile_cache
 from kubeflow_tpu_torch.utils.envvars import ENV_EVENT_DIR, ENV_PROFILE_DIR
+
+#: parameters' elements a CUDA graph's Adam update takes at a time
+ADAM_SLICE_ELEMENTS = 2**28
 
 #: real steps taken (and undone) before a CUDA graph of the step is captured:
 #: they allocate what the step allocates once (cuBLAS workspaces, Adam's
@@ -142,7 +168,9 @@ class TrainerConfig:
     checkpoint_dir: str | None = None
     checkpoint_every_steps: int = 200
     log_every_steps: int = 50
-    mesh: Any = None                  # only None (one device) is ported
+    # None = one process; a MeshConfig (or a parallel.mesh.Mesh) lays the
+    # gang's ranks over the named axes (data, fsdp and expert execute)
+    mesh: MeshConfig | Mesh | None = None
     # torch.profiler Chrome trace of fit; "" defers to KFTPU_PROFILE_DIR
     profile_dir: str = ""
     # tfevents scalar output for TensorBoard; "" defers to KFTPU_EVENT_DIR
@@ -158,7 +186,11 @@ class TrainerConfig:
     early_stop_metric: str = "accuracy"
     early_stop_mode: str = "max"      # max | min — independent of best_mode
     early_stop_min_delta: float = 0.0
-    data_placement: str = "replicated"  # only "replicated" is ported
+    # "replicated": every process feeds the identical full batch (the
+    # seed-deterministic pipeline convention); "process_local": each
+    # process feeds ONLY its own rows (batch_size / its data-like extent;
+    # train/data.py load_dataset_shards), the gang's global batch
+    data_placement: str = "replicated"  # replicated | process_local
     # restart-warm kernel cache (utils/compile_cache.py); "" defers to
     # KFTPU_COMPILE_CACHE_DIR. When a dir resolves, fit builds and loads the
     # kernels' libraries there (and captures the chunk's CUDA graph) under a
@@ -171,17 +203,14 @@ class TrainerConfig:
 
 
 def _refuse_unported(c: TrainerConfig) -> None:
-    """Raise for every TrainerConfig value the port cannot honour yet."""
-    refusals = [
-        (c.mesh is not None, "mesh: sharding over a device mesh is ported "
-         "with the parallelism slice (ROADMAP Queue A item 8)"),
-        (c.data_placement != "replicated",
-         f"data_placement={c.data_placement!r}: per-process data needs the "
-         "distributed bootstrap (ROADMAP Queue A item 6)"),
-    ]
-    for hit, why in refusals:
-        if hit:
-            raise NotImplementedError(why)
+    """Raise for every TrainerConfig value the port cannot honour yet: a
+    mesh axis it does not execute (model, context, pipeline)."""
+    if c.data_placement not in ("replicated", "process_local"):
+        raise ValueError(f"data_placement {c.data_placement!r} is not "
+                         "replicated|process_local")
+    if c.mesh is not None:
+        refuse_unexecuted(c.mesh.sizes() if isinstance(c.mesh, MeshConfig)
+                          else c.mesh.shape)
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -218,14 +247,23 @@ class TrainState:
     #: bumped by load_state_dict, which replaces the optimizer's state
     #: tensors: a CUDA graph captured over the old ones must not replay
     generation: int = 0
+    #: a gang's layout: the state saves as full tensors (the one-process
+    #: state_dict) and restores onto any layout; collective under a gang
+    layout: GangLayout | None = None
 
     def state_dict(self) -> dict:
+        if self.layout is not None:
+            return {"step": self.step, **self.layout.state_dict(
+                self.model, self.optimizer)}
         return {"step": self.step, "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        if self.layout is not None:
+            self.layout.load_state_dict(self.model, self.optimizer, sd)
+        else:
+            self.model.load_state_dict(sd["model"])
+            self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])
         self.generation += 1
 
@@ -235,7 +273,12 @@ class Trainer:
     parameters. A model whose forward takes ``train`` (and ``generator``,
     for dropout: the step's ``DropoutSeeds``) is called with them. The
     model arrives with its weights (``GPTLM.init_weights``, a converted
-    checkpoint); ``config.seed`` seeds dropout and the batch order."""
+    checkpoint); ``config.seed`` seeds dropout and the batch order.
+
+    Under ``config.mesh`` every rank of the gang builds its Trainer from
+    the same weights, and the module it trains is sharded in place by the
+    model's PARTITION_RULES (``parallel/sharding.GangLayout``): read the
+    trained weights from ``state.state_dict()``, which gathers them."""
 
     def __init__(
         self,
@@ -250,6 +293,20 @@ class Trainer:
         self.model, self.compute_dtype = self.resolve_compute_dtype(
             model, config)
         self.device = next(model.parameters()).device
+        self.mesh = self.layout = None
+        if config.mesh is not None:
+            self.mesh = (config.mesh if isinstance(config.mesh, Mesh)
+                         else build_mesh(config.mesh,
+                                         device_type=self.device.type))
+            self.layout = GangLayout(self.model, self.mesh, Partitioner(
+                mesh=self.mesh,
+                path_specs=getattr(model, "PARTITION_RULES", None)))
+            if (self.layout.sharded and config.fused_steps > 1
+                    and self.device.type == "cuda"):
+                raise NotImplementedError(
+                    "fused_steps > 1 under an fsdp axis above 1 on the card:"
+                    " FSDP2's collectives are not captured in a CUDA graph "
+                    "(ROADMAP Queue A item 3)")
         self.loss_fn = loss_fn
         # per-example (loss, accuracy) for eval AND the train-step accuracy
         self.eval_metrics_fn = eval_metrics_fn or classification_eval_metrics
@@ -333,7 +390,8 @@ class Trainer:
                                  weight_decay=c.weight_decay)
                if c.weight_decay else
                torch.optim.Adam(params, lr=c.learning_rate))
-        return TrainState(step=0, model=self.model, optimizer=opt)
+        return TrainState(step=0, model=self.model, optimizer=opt,
+                          layout=self.layout)
 
     def _optimizer_step(self, state: TrainState) -> None:
         """The optimizer's update at the schedule's learning rate."""
@@ -361,6 +419,30 @@ class Trainer:
         return torch.tensor(rows, dtype=torch.float32)
 
     # --------------------------------------------------------------- steps
+
+    @property
+    def _process_local(self) -> bool:
+        return self.config.data_placement == "process_local"
+
+    def _per_process_batch(self) -> int:
+        """Rows a process feeds a step: all of them, or its own share under
+        process_local."""
+        n = self.layout.size if self.layout is not None else 1
+        return self.config.batch_size // (n if self._process_local else 1)
+
+    def _local(self, batch, stacked: bool = False):
+        """This rank's rows of a host batch (the batch dim split over the
+        data-like axes; taken as they are under process_local); a
+        ``LocalBatch`` is this rank's already."""
+        if self.layout is None or self.layout.size == 1:
+            return batch
+        return shard_batch(batch, self.mesh, self._process_local, stacked)
+
+    def _upload(self, batch):
+        """A host batch's rows for this rank, on the device."""
+        if self.layout is None:
+            return to_device(batch, self.device)
+        return LocalBatch(to_device(self._local(batch), self.device))
 
     def _place(self, batch):
         return tuple(b if isinstance(b, torch.Tensor) and b.device ==
@@ -392,8 +474,10 @@ class Trainer:
     def train_step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
         """One optimizer step on batch (x, y) — host arrays or tensors —
         with grad_accum_steps microbatches. Returns the state and its
-        metrics (0-dim tensors on the device: loss, accuracy, grad_norm)."""
-        return self._step(state, batch, self._optimizer_step)
+        metrics (0-dim tensors on the device: loss, accuracy, grad_norm).
+        Under a gang the batch is the global one (this process's rows
+        under process_local) and the metrics are the gang's."""
+        return self._step(state, self._local(batch), self._optimizer_step)
 
     def _step(self, state: TrainState, batch,
               update: Callable[[TrainState], None],
@@ -418,8 +502,11 @@ class Trainer:
             self._step_seeds(state.step))
         loss_sum = acc_sum = 0.0
         for mx, my in zip(x.chunk(n_acc), y.chunk(n_acc)):
-            logits = self._apply(state.model, mx, gen, True).float()
+            with collect_losses() as sown:
+                logits = self._apply(state.model, mx, gen, True).float()
             loss = self.loss_fn(logits, my)
+            if sown:  # the model's sown aux losses join the objective
+                loss = loss + sum(a.float() for a in sown)
             loss.backward()
             with torch.no_grad():
                 acc = self.eval_metrics_fn(logits.detach(), my)[1].mean()
@@ -427,13 +514,20 @@ class Trainer:
             acc_sum = acc_sum + acc
         params = [p for g in opt.param_groups for p in g["params"]
                   if p.grad is not None]
-        grads = [p.grad for p in params]
+        grads = [local_tensor(p.grad) for p in params]
         if n_acc > 1:  # the mean of the microbatch grads
             for g in grads:
                 g.div_(n_acc)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float())
-                         for g in grads]))
+        gang = self.layout is not None and self.layout.size > 1
+        if gang:
+            self.layout.sync_grads(state.model)
+            grad_norm = self.layout.grad_norm(state.model)
+            loss_sum = self.layout.mean(loss_sum)
+            acc_sum = self.layout.mean(acc_sum)
+        else:
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.float())
+                             for g in grads]))
         if c.grad_clip_norm > 0:
             clip = torch.full_like(grad_norm, c.grad_clip_norm)
             factor = torch.where(grad_norm < clip, 1.0, clip / grad_norm)
@@ -451,6 +545,7 @@ class Trainer:
         """n optimizer steps on one constant batch; the last step's metrics.
         On the card one replay of the n-step CUDA graph (captured at first
         use, or by ``compile_fused``); on the CPU n ``train_step``s."""
+        batch = self._local(batch)
         if self.device.type != "cuda":
             return self._eager_steps(state, [batch] * n)
         return self._replay(state, batch, n, scanned=False)
@@ -461,6 +556,7 @@ class Trainer:
         (k, B, ...)), step i on slice i; the last step's metrics. On the
         card one replay of the chunk's CUDA graph; on the CPU k
         ``train_step``s in order."""
+        stacked = self._local(stacked, stacked=True)
         if self.device.type != "cuda":
             return self._eager_steps(
                 state, [tuple(a[i] for a in stacked) for i in range(k)])
@@ -472,6 +568,7 @@ class Trainer:
         its CUDA graph. Returns (program, placed_batch): ``program(state,
         placed_batch)`` runs the n steps; on the card placed_batch is the
         graph's static input buffers, already holding the batch."""
+        batch = self._local(batch)
         if self.device.type == "cuda":
             graph = self._graph(state, batch, n, scanned=False)
             graph.upload(batch)
@@ -480,14 +577,18 @@ class Trainer:
             placed = self._place(batch)
 
         def program(st: TrainState, b):
-            return self.train_steps_fused(st, b, n)
+            if self.device.type != "cuda":
+                return self._eager_steps(st, [b] * n)
+            return self._replay(st, b, n, scanned=False)
 
         return program, placed
 
     def _eager_steps(self, state: TrainState, batches_) -> tuple:
+        """``train_step`` on each of batches that are this rank's rows
+        already."""
         m: dict = {}
         for b in batches_:
-            state, m = self.train_step(state, b)
+            state, m = self.train_step(state, LocalBatch(b))
         return state, m
 
     def _replay(self, state: TrainState, batch, k: int, scanned: bool):
@@ -545,9 +646,13 @@ class Trainer:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph_warmups += GRAPH_WARMUP_STEPS
         _restore(state, snap)
+        del snap
         scalars = self._update_scalars(state, k).to(dev)
         seeds = self._graph_seeds(state, k).to(dev)
         opt.zero_grad(set_to_none=True)  # grads from the graph's pool
+        # the eager blocks freed above cannot serve the graph's pool: at
+        # billions of parameters the card holds the state only once
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         step0 = state.step
@@ -574,10 +679,13 @@ class Trainer:
     def evaluate(self, state: TrainState,
                  dataset: Dataset) -> dict[str, float]:
         """Mean per-example loss and accuracy over the whole test split;
-        the tail batch is zero-padded to the batch size and masked."""
+        the tail batch is zero-padded to the batch size and masked. Under a
+        gang each rank evaluates its rows of every batch (the test split
+        is every rank's) and the sums are the gang's."""
         c = self.config
         bs = min(c.batch_size, len(dataset.x_test))
-        tot_loss, correct, count = 0.0, 0.0, 0
+        gang = self.layout is not None and self.layout.size > 1
+        sums = torch.zeros(3, dtype=torch.float64, device=self.device)
         for bx, by in batches(dataset.x_test, dataset.y_test, bs,
                               drop_remainder=False):
             n = len(bx)
@@ -587,16 +695,19 @@ class Trainer:
                     [bx, np.zeros((pad, *bx.shape[1:]), bx.dtype)])
                 by = np.concatenate(
                     [by, np.zeros((pad, *by.shape[1:]), by.dtype)])
-            w = (np.arange(bs) < n).astype(np.float32)
-            x, y, wt = to_device((bx, by, w), self.device)
+            batch = (bx, by, (np.arange(bs) < n).astype(np.float32))
+            x, y, wt = to_device(shard_batch(batch, self.mesh) if gang
+                                 else batch, self.device)
             logits = self._apply(state.model, self._cast(x), None,
                                  False).float()
             per_ex, acc = self.eval_metrics_fn(logits, y)
-            tot_loss += float((per_ex * wt).sum())
-            correct += float((acc * wt).sum())
-            count += n
-        return {"loss": tot_loss / max(count, 1),
-                "accuracy": correct / max(count, 1)}
+            sums += torch.stack([(per_ex * wt).sum(), (acc * wt).sum(),
+                                 wt.sum()]).double()
+        if gang:
+            sums = self.layout.sum(sums)
+        loss, correct, count = sums.tolist()
+        return {"loss": loss / max(count, 1.0),
+                "accuracy": correct / max(count, 1.0)}
 
     # ---------------------------------------------------------- warm start
 
@@ -628,6 +739,7 @@ class Trainer:
             if fused_k > 1 and state is not None:
                 stacked = tuple(np.stack([np.asarray(a)] * fused_k)
                                 for a in (sample_x, sample_y))
+                stacked = self._local(stacked, stacked=True)
                 self._graph(state, stacked, fused_k, scanned=True)
                 info["graph"] = f"train_chunk_{fused_k}"
         after = compile_cache.compile_counts()
@@ -695,11 +807,11 @@ class Trainer:
         # restart-warm: with a cache dir, the kernels and the chunk's graph
         # are made ready now, under their own span, not inside step one
         if cache_dir:
-            per_epoch = len(dataset.x_train) // c.batch_size
+            bs = self._per_process_batch()
+            per_epoch = len(dataset.x_train) // bs
             with tracer.span("train.compile") as sp:
                 info = self.warm_start(
-                    dataset.x_train[:c.batch_size],
-                    dataset.y_train[:c.batch_size], cache_dir,
+                    dataset.x_train[:bs], dataset.y_train[:bs], cache_dir,
                     fused_k=min(c.fused_steps, max(per_epoch, 1)),
                     state=state)
                 for k, v in info.items():
@@ -741,7 +853,9 @@ class Trainer:
             with tracer.span("checkpoint.save", step=step):
                 self.checkpointer.save(step, st, metrics=metrics)
 
-        per_epoch = len(dataset.x_train) // c.batch_size
+        # a process's batches: the global batch, or its own rows of it
+        bs = self._per_process_batch()
+        per_epoch = len(dataset.x_train) // bs
         if per_epoch == 0:
             raise ValueError(
                 f"batch_size {c.batch_size} exceeds train set size "
@@ -801,7 +915,7 @@ class Trainer:
             if k > 1:
                 pending: list = []
                 batch_src = batches(dataset.x_train, dataset.y_train,
-                                    c.batch_size, seed=c.seed + epoch)
+                                    bs, seed=c.seed + epoch)
                 if tracer.enabled:
                     batch_src = _traced_data_iter(tracer, batch_src)
                 for b in batch_src:
@@ -825,16 +939,16 @@ class Trainer:
                     if global_step >= total_steps or stop or one_step(b):
                         break
             else:
-                raw = batches(dataset.x_train, dataset.y_train, c.batch_size,
+                raw = batches(dataset.x_train, dataset.y_train, bs,
                               seed=c.seed + epoch)
                 loader = None
                 if c.async_loader:
-                    loader = AsyncLoader(
-                        raw, transform=lambda b: to_device(b, self.device),
-                        size=2)
+                    loader = AsyncLoader(raw, transform=self._upload, size=2)
                     batch_src = loader
                 else:
-                    batch_src = prefetch_to_device(raw, self.device)
+                    batch_src = prefetch_to_device(
+                        raw, self.device, mesh=self.mesh,
+                        process_local=self._process_local)
                 if tracer.enabled:
                     batch_src = _traced_data_iter(tracer, batch_src,
                                                   stats_from=loader)
@@ -975,24 +1089,62 @@ def _adam_update(opt, scalars: torch.Tensor) -> None:
         torch._foreach_lerp_(m, grads, 1 - beta1)
         torch._foreach_mul_(v, beta2)
         torch._foreach_addcmul_(v, grads, grads, 1 - beta2)
-        denom = torch._foreach_sqrt(v)
-        torch._foreach_div_(denom, scalars[1])
-        torch._foreach_add_(denom, group["eps"])
-        for p, q in zip(params, torch._foreach_div(m, denom)):
-            p.addcmul_(q, scalars[0])
+        # the step's two temporaries (denom, m / denom) a slice of the
+        # parameters at a time: at billions of parameters a graph's pool
+        # cannot hold them for all at once
+        for lo, hi in _slices(params, ADAM_SLICE_ELEMENTS):
+            denom = torch._foreach_sqrt(v[lo:hi])
+            torch._foreach_div_(denom, scalars[1])
+            torch._foreach_add_(denom, group["eps"])
+            for p, q in zip(params[lo:hi],
+                            torch._foreach_div(m[lo:hi], denom)):
+                p.addcmul_(q, scalars[0])
+            del denom
+
+
+def _slices(tensors, limit: int):
+    """[lo, hi) ranges of ``tensors``, each of at most ``limit`` elements
+    (or one tensor)."""
+    lo = size = 0
+    for i, t in enumerate(tensors):
+        if size and size + t.numel() > limit:
+            yield lo, i
+            lo, size = i, 0
+        size += t.numel()
+    if lo < len(tensors):
+        yield lo, len(tensors)
 
 
 def _snapshot(state: TrainState) -> dict:
     """Copies of everything a step changes: the parameters, the buffers
-    (BatchNorm's averages), the optimizer's state tensors and the step."""
+    (BatchNorm's averages), the optimizer's state tensors and the step.
+    The copies stay on the card when they and a step's gradients and Adam
+    moments (three times the parameters) fit in half its free memory;
+    else they are held in host memory: at billions of parameters the card
+    holds the state and a warm-up step's temporaries, not a second copy."""
+    tensors = [*state.model.parameters(), *state.model.buffers()]
+    moments = {p: {k: v for k, v in st.items() if torch.is_tensor(v)}
+               for p, st in state.optimizer.state.items()}
+    to = None
+    if tensors and tensors[0].is_cuda:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
+            v.numel() * v.element_size()
+            for st in moments.values() for v in st.values())
+        nbytes += 3 * sum(p.numel() * p.element_size()
+                          for p in state.model.parameters())
+        if 2 * nbytes > torch.cuda.mem_get_info(tensors[0].device)[0]:
+            to = "cpu"
+
+    def copy(t):
+        return t.detach().clone() if to is None else t.detach().to(
+            to, copy=True)
+
     with torch.no_grad():
         return {
             "step": state.step,
-            "tensors": [(t, t.detach().clone()) for t in (
-                *state.model.parameters(), *state.model.buffers())],
-            "opt": {p: {k: v.clone() for k, v in st.items()
-                        if torch.is_tensor(v)}
-                    for p, st in state.optimizer.state.items()},
+            "tensors": [(t, copy(t)) for t in tensors],
+            "opt": {p: {k: copy(v) for k, v in st.items()}
+                    for p, st in moments.items()},
         }
 
 

@@ -215,8 +215,9 @@ def test_train_forward_dropout_and_remat():
 
 
 def test_refusals_and_config():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tb.BertEncoder(tb.BertConfig.tiny(moe_experts=4), device="cpu")
+    # the MoE encoder builds (tests/test_torch_moe.py)
+    assert tb.BertEncoder(tb.BertConfig.tiny(moe_experts=4),
+                          device="cpu").layer_0.moe.num_experts == 4
     for kind in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="item 8"):
             tb.BertEncoder(tb.BertConfig.tiny(attention=kind), device="cpu")

@@ -42,7 +42,11 @@ def test_port_files_exist():
                 "serving/aot.py", "serving/storage.py", "serving/agent.py",
                 "serving/server.py", "kernels/dropout.py",
                 "train/tokenizer.py", "train/bpe_gpt2.py", "train/lora.py",
-                "train/convert.py", "cli.py", "__main__.py"):
+                "train/convert.py", "cli.py", "__main__.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/partitioner.py", "parallel/sharding.py",
+                "parallel/moe.py", "runtime/__init__.py",
+                "runtime/distributed.py"):
         assert ROOT / "kubeflow_tpu_torch" / rel in FILES, rel
 
 

@@ -24,6 +24,7 @@ from kubeflow_tpu.train import trainer as jt
 from kubeflow_tpu_torch import health
 from kubeflow_tpu_torch.convert import flax_params_from_gpt, gpt_params_from_flax
 from kubeflow_tpu_torch.models import gpt as tg
+from kubeflow_tpu_torch.parallel import mesh as tmesh
 from kubeflow_tpu_torch.train import data as td
 from kubeflow_tpu_torch.train import metrics as tm
 from kubeflow_tpu_torch.train import trainer as tt
@@ -386,12 +387,19 @@ def test_fit_heartbeats_and_final_metrics(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,entry", [
-    ("mesh", object(), "item 8"),
-    ("data_placement", "process_local", "item 6"),
+    ("mesh", tmesh.MeshConfig(model=2), "item 8"),
+    ("mesh", tmesh.MeshConfig(context=2), "item 8"),
+    ("mesh", tmesh.MeshConfig(pipeline=2), "item 8"),
 ])
 def test_unported_config_refused(field, value, entry):
+    """The mesh axes the port does not execute are refused; the data,
+    fsdp and expert axes and data_placement="process_local" train
+    (tests/test_torch_dist.py, tests/test_torch_moe.py)."""
     with pytest.raises(NotImplementedError, match=entry):
         tt.Trainer(torch_model(tiny()), tt.TrainerConfig(**{field: value}))
+    with pytest.raises(ValueError, match="replicated|process_local"):
+        tt.Trainer(torch_model(tiny()),
+                   tt.TrainerConfig(data_placement="sharded"))
 
 
 def test_async_loader_order_and_errors():
