@@ -209,6 +209,28 @@ Phases, each fatal on failure:
      a request at a time, flash_fwd launches = layers x prefills, MoE forwards routed only in prefills and dropless only in
      decode ticks; TTFT, decode tokens/s, the tick and what bounds it
 
+  14. context-parallel training's local attention (run after phase 6's
+     restart-warm check): (a) blockwise attention (plain PyTorch, the ring
+     and Ulysses paths' attention on each rank; vjp "custom", the FA2
+     backward from the saved logsumexp) against the flash kernels at (4,
+     2048, 12, 64) causal, f32 and bf16, window 0 and 256 (bench.py's
+     gpt2s_swa_2k): phase 3's and 5's limits and TILE_TOL, custom against
+     "autodiff" at the JAX package's bounds, loop and device times beside
+     the kernels'; (b) the peak memory of one attention's forward and
+     backward at (1, 8192, 12, 64) bf16 causal: custom below autodiff; (c)
+     GPT-2 small at 4 x 2048, f32 parameters, bf16 compute, on a context
+     mesh of one, CTX_STEPS steps each with attention ring, Ulysses and
+     flash from the same weights and batches: losses within 2e-3 and grad
+     norms within 1% of the flash fit's, the flash fit 12 launches of each
+     flash kernel a step, ring and Ulysses none; step times; and the
+     dropout kernels' slice form (a context rank's positions of GPT-2
+     small's (4, 2048, 768) residual, ctx 2 and 4) bit-equal to the whole
+     tensor's masks
+
+Device times (phases 3, 5 and 14) carry a second reading of the same
+launches, CUDA events on the stream around the profiled calls, printed as
+"(events ...)" beside the profiler's.
+
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Every number is printed beside the card's
 name and power limit. Without a CUDA device it exits nonzero and prints no
@@ -218,6 +240,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -484,8 +507,8 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, iters: int, pad: float = PROFILE_PAD
-                  ) -> tuple[list, float]:
+def device_events(fn, iters: int, pad: float = PROFILE_PAD,
+                  stamps: list | None = None) -> tuple[list, float]:
     """The device activities (kernels, copies, fills) of iters calls of
     fn(), after a warmup, from a torch.profiler trace: ([(name, start_us,
     duration_us)], host seconds of the traced calls to their last
@@ -494,21 +517,29 @@ def device_events(fn, iters: int, pad: float = PROFILE_PAD
     time before and after the calls: the profiler drops a device activity
     whose timestamp falls outside its window, and on the card's machine a
     short window has lost every activity, traces after traces (PERF.md
-    §7). Raises if the trace holds none."""
+    §7). CUDA events recorded on the stream bracket the same calls: their
+    ms per call is appended to ``stamps`` before a trace that holds
+    nothing raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(pad)
         t0 = time.perf_counter()
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(pad)
+    if stamps is not None:
+        stamps.append(start.elapsed_time(end) / iters)
     events = [(e.name, e.time_range.start, e.time_range.elapsed_us())
               for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -517,7 +548,17 @@ def device_events(fn, iters: int, pad: float = PROFILE_PAD
     return events, wall
 
 
-def device_ms(fn, iters: int, attempts: int = 6) -> float:
+class DeviceTime(float):
+    """A call's device time from the profiler (``device_ms``), carrying a
+    second reading of the same launches: ``events_ms``, CUDA events on the
+    stream around the traced calls (the device's time from the first
+    call's start to the last call's end, gaps between launches included).
+    A call the profiler loses (NaN) still has that reading."""
+
+    events_ms: float = math.nan
+
+
+def device_ms(fn, iters: int, attempts: int = 6) -> DeviceTime:
     """Device time of one fn() call: for each activity name in a trace of
     iters calls, its mean duration times the times a call runs it
     (round(count / iters)), summed. A trace can lose an activity at its
@@ -528,11 +569,20 @@ def device_ms(fn, iters: int, attempts: int = 6) -> float:
     up to `attempts` times; then the largest reading stands. With none
     above 0 the device time is not measured (NaN, printed as such): the
     profiler's loss of every activity (PERF.md §7) says nothing of the
-    kernel, whose loop time and agreement are checked apart."""
-    best = 0.0
+    kernel, whose loop time and agreement are checked apart. The result
+    carries the CUDA events' reading of the same launches (``DeviceTime``:
+    the last trace's)."""
+    best, stamps = 0.0, []
+
+    def reading(ms: float) -> DeviceTime:
+        out = DeviceTime(ms)
+        out.events_ms = stamps[-1] if stamps else math.nan
+        return out
+
     for attempt in range(attempts):
         try:
-            events, _ = device_events(fn, iters, PROFILE_PAD * 2 ** attempt)
+            events, _ = device_events(fn, iters, PROFILE_PAD * 2 ** attempt,
+                                      stamps)
         except AssertionError:
             continue
         by_name: dict = {}
@@ -541,13 +591,14 @@ def device_ms(fn, iters: int, attempts: int = 6) -> float:
         ms = sum(sum(d) / len(d) * round(len(d) / iters)
                  for d in by_name.values()) / 1e3
         if all(round(len(d) / iters) for d in by_name.values()):
-            return ms
+            return reading(ms)
         best = max(best, ms)
     if best > 0:
-        return best
+        return reading(best)
     print(f"  device time not measured: torch.profiler recorded no device "
-          f"time of the call in {attempts} traces", flush=True)
-    return math.nan
+          f"time of the call in {attempts} traces; CUDA events read "
+          f"{stamps[-1]:.5f} ms a call", flush=True)
+    return reading(math.nan)
 
 
 def busy_us(events) -> float:
@@ -769,7 +820,8 @@ def phase_kernels(peaks, card: str, routes: dict) -> dict:
         form = "causal" if causal else "non-causal"
         print(f"  {tag:8s} B={b} L={l:5d} {form} window={window:3d} {dt:9s} "
               f"err_o={err_o:.3e} err_lse={err_l:.3e} (tol {tol[dt]:g}) "
-              f"kernel_ms={ms:.5f} dev={dev:.5f} plain_ms={plain_ms:.5f} "
+              f"kernel_ms={ms:.5f} dev={dev:.5f} (events "
+              f"{dev.events_ms:.5f}) plain_ms={plain_ms:.5f} "
               f"sdpa_masked_ms={lib_s} dev={lib_dev_s} "
               f"sdpa_causal_ms={causal_s} dev={causal_dev_s} "
               f"bound_ms={bound_ms:.5f} ({bound_by}) [{card}]", flush=True)
@@ -970,7 +1022,8 @@ def phase_backward(peaks, card: str, routes: dict) -> dict:
                       f"window={window:3d}"
                       f" {dt:9s} err={errs[key]:.3e} (scale "
                       f"{scales[key]:.3g}) ms={times[key]:.5f} "
-                      f"dev={devs[key]:.5f} bound_ms={bound_ms:.5f} "
+                      f"dev={devs[key]:.5f} (events "
+                      f"{devs[key].events_ms:.5f}) bound_ms={bound_ms:.5f} "
                       f"({bound_by}) plain_ms={rec['plain_ms']:.5f} "
                       f"library_ms={rec['library_ms']:.5f} dev="
                       f"{rec['library_device_ms']:.5f} [{card}]",
@@ -5543,6 +5596,312 @@ def phase_moe(peaks, card: str, trained: tuple[dict, float]) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 14
+
+# phase 14: blockwise attention, the ring and Ulysses paths' local attention
+# (plain PyTorch, as the JAX package computes it outside Pallas), against
+# the flash kernels at the training shape and bench.py's gpt2s_swa_2k window;
+# its peak memory at CTX_MEM_LEN; GPT-2 small trained CTX_STEPS steps with
+# ring, Ulysses and flash attention on a context mesh of one, from the same
+# weights and batches: losses within CTX_LOSS_ATOL, grad norms within
+# CTX_NORM_RTOL of the flash fit's
+CTX_WINDOW, CTX_MEM_LEN, CTX_STEPS = 256, 8192, 3
+# the dropout kernels' slice form (a context rank's positions) over these
+# context sizes
+CTX_DROPOUT_SPLITS = (2, 4)
+CTX_LOSS_ATOL, CTX_NORM_RTOL = 2e-3, 0.01
+# custom against autodiff: the JAX package's bounds (tests/
+# test_ring_attention.py TestBlockwiseCustomVJP): f32 atol 1e-4; bf16 atol
+# 6e-2, rtol 5e-2
+CTX_VJP_TOL = {"float32": (1e-4, 0.0), "bfloat16": (6e-2, 5e-2)}
+
+
+def blockwise_call(q, k, v, bias, g, window, vjp, backward=True):
+    """blockwise_attention's forward (and its backward from cotangent g)
+    at phase 6's attention block, causal."""
+    import torch
+
+    from kubeflow_tpu_torch.parallel.ring_attention import blockwise_attention
+
+    def call():
+        leaves = [t.detach().requires_grad_(backward) for t in (q, k, v)]
+        with torch.set_grad_enabled(backward):
+            out = blockwise_attention(*leaves, bias, block=128, causal=True,
+                                      window=window, vjp=vjp)
+            if not backward:
+                return out, None
+            return out, torch.autograd.grad(out, leaves, g)
+
+    return call
+
+
+def flash_call(q, k, v, bias, g, window, backward=True):
+    """The flash kernels on the same function: flash_fwd, then dd, dq and
+    dkv (the default backward)."""
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        flash_backward,
+        flash_forward,
+    )
+
+    def call():
+        out, lse = flash_forward(q, k, v, bias, 128, 128, True, window)
+        if not backward:
+            return out, None
+        dq, dk, dv, _ = flash_backward(q, k, v, bias, out, lse, g, 128, 128,
+                                       True, window=window, want_dbias=False)
+        return out, (dq, dk, dv)
+
+    return call
+
+
+def ctx_kernels(card: str) -> None:
+    """(a) blockwise attention (vjp custom, and autodiff) against the
+    Hopper kernels at (4, 2048, 12, 64) causal, f32 and bf16, window 0 and
+    CTX_WINDOW: phase 3's forward and phase 5's backward limits and
+    TILE_TOL; custom against autodiff at the JAX package's bounds; loop
+    and device times (the profiler's, and CUDA events around the same
+    launches) beside the kernels'. The kernels' launches here compare and
+    are not counted."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    b, l, h, d = TRAIN_BATCH, TRAIN_LEN, 12, 64
+    fwd_tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    bwd_tol = {"float32": 1e-4, "bfloat16": 4 * 2.0 ** -8}
+    print(f"phase 14 (a): blockwise attention (plain PyTorch; vjp custom) "
+          f"against the flash kernels at B={b} L={l} H={h} D={d} causal, "
+          f"attention block 128: forward max-abs f32 1e-4 / bf16 2e-2, "
+          f"backward f32 1e-4 / bf16 4 ulps of max(1, max |grad|), every "
+          f"64-position block within TILE_TOL; custom against autodiff at "
+          f"the JAX package's bounds {CTX_VJP_TOL}; ms a call: loop (CUDA "
+          f"events), device (profiler; events over the same launches) "
+          f"[{card}]", flush=True)
+    bad = []
+    for dt in ("bfloat16", "float32"):
+        for window in (0, CTX_WINDOW):
+            dtype = getattr(torch, dt)
+            q, k, v, bias = make_attention_inputs(b, l, h, d, dtype, 0, gen)
+            g = torch.randn((b, l, h, d), generator=gen,
+                            device="cuda").to(dtype)
+            o_f, g_f = flash_call(q, k, v, bias, g, window)()
+            o_c, g_c = blockwise_call(q, k, v, bias, g, window, "custom")()
+            o_a, g_a = blockwise_call(q, k, v, bias, g, window,
+                                      "autodiff")()
+            torch.cuda.synchronize()
+            errs = {"out": ((o_c.float() - o_f.float()).abs().max().item(),
+                            fwd_tol[dt],
+                            tile_error(o_c.transpose(1, 2),
+                                       o_f.transpose(1, 2)))}
+            for name, got, ref in zip(("dq", "dk", "dv"), g_c, g_f):
+                scale = max(1.0, ref.float().abs().max().item())
+                errs[name] = ((got.float() - ref.float()).abs().max().item(),
+                              bwd_tol[dt] * scale,
+                              tile_error(got.transpose(1, 2),
+                                         ref.transpose(1, 2)))
+            atol, rtol = CTX_VJP_TOL[dt]
+            vjp_ok = torch.equal(o_c, o_a) and all(
+                torch.allclose(c.float(), a.float(), atol=atol, rtol=rtol)
+                for c, a in zip(g_c, g_a))
+            vjp_err = max((c.float() - a.float()).abs().max().item()
+                          for c, a in zip(g_c, g_a))
+            del o_a, g_a
+            times = {}
+            for name, call in (
+                    ("blockwise fwd", blockwise_call(q, k, v, bias, g,
+                                                     window, "custom",
+                                                     False)),
+                    ("blockwise fwd+bwd", blockwise_call(q, k, v, bias, g,
+                                                         window, "custom")),
+                    ("flash fwd", flash_call(q, k, v, bias, g, window,
+                                             False)),
+                    ("flash fwd+bwd", flash_call(q, k, v, bias, g,
+                                                 window))):
+                dev = device_ms(call, 5)
+                times[name] = (time_ms(call, 5), dev, dev.events_ms)
+            print(f"  {dt:9s} window={window:3d}: "
+                  + "; ".join(f"{n} err {e:.3e} (limit {lim:.3g}), block "
+                              f"{t:.3e}" for n, (e, lim, t) in errs.items())
+                  + f"; custom against autodiff (out bit-equal, grads "
+                  f"within bounds) {vjp_ok}, grads' largest difference "
+                  f"{vjp_err:.3e} [{card}]", flush=True)
+            print(f"  {dt:9s} window={window:3d} ms loop / device (events): "
+                  + "; ".join(f"{n} {lp:.5f} / {dv:.5f} ({ev:.5f})"
+                              for n, (lp, dv, ev) in times.items())
+                  + f"; blockwise over flash, fwd+bwd loop "
+                  f"{times['blockwise fwd+bwd'][0] / times['flash fwd+bwd'][0]:.1f}x"
+                  f" [{card}]", flush=True)
+            for n, (e, lim, t) in errs.items():
+                if not (math.isfinite(e) and e <= lim and t <= TILE_TOL[dt]):
+                    bad.append((dt, window, n, e, lim, t))
+            if not vjp_ok:
+                bad.append((dt, window, "custom vs autodiff", vjp_err))
+            del q, k, v, bias, g, o_f, g_f, o_c, g_c
+            torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 14 (a): blockwise attention disagrees "
+                             f"with the flash kernels: {bad}")
+    ctx_dropout(card)
+
+
+def ctx_dropout(card: str) -> None:
+    """The dropout kernels' slice form, which a context rank's residual
+    dropout takes: each of CTX_DROPOUT_SPLITS ranks' L/ctx positions of
+    GPT-2 small's (4, 2048, 768) bf16 residual, forward and backward, bit
+    for bit the whole tensor's kernel output there and the plain
+    version's (their launches compare and are not counted)."""
+    import torch
+
+    from kubeflow_tpu_torch.kernels import dropout as kd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    seed = torch.tensor(SEED + 2**40, dtype=torch.int64, device="cuda")
+    b, l, width = TRAIN_BATCH, TRAIN_LEN, 768
+    x = torch.randn((b, l, width), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    whole = kd.dropout_fwd(x, seed, 0.1, 1).view(torch.int16)
+    whole_b = kd.dropout_bwd(x, seed, 0.1, 1).view(torch.int16)
+    same = True
+    for ctx in CTX_DROPOUT_SPLITS:
+        row = (l // ctx) * width
+        for i, part in enumerate(x.chunk(ctx, dim=1)):
+            span = (row, l * width, i * row)
+            part = part.contiguous()
+            got = kd.dropout_fwd(part, seed, 0.1, 1, span).view(torch.int16)
+            got_b = kd.dropout_bwd(part, seed, 0.1, 1, span).view(
+                torch.int16)
+            plain = kd.dropout_plain(part, seed, 0.1, 1, span).view(
+                torch.int16)
+            same = same and torch.equal(got, whole.chunk(ctx, dim=1)[i]) \
+                and torch.equal(got, plain) \
+                and torch.equal(got_b, whole_b.chunk(ctx, dim=1)[i])
+    print(f"phase 14 (a): dropout_fwd/dropout_bwd on each context rank's "
+          f"positions of ({b}, {l}, {width}) bf16 for ctx in "
+          f"{CTX_DROPOUT_SPLITS}, bit-equal to the whole tensor's kernel "
+          f"output and the plain version: {same} [{card}]", flush=True)
+    if not same:
+        raise AssertionError("phase 14 (a): the dropout kernels' slice form "
+                             "draws other masks than the whole tensor's")
+
+
+def ctx_memory(card: str) -> None:
+    """(b) the peak memory of one blockwise attention's forward and
+    backward at (1, CTX_MEM_LEN, 12, 64) bf16 causal, custom against
+    autodiff (and the flash kernels'): the custom backward keeps O(L)
+    residuals and must be the lower."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    q, k, v, bias = make_attention_inputs(1, CTX_MEM_LEN, 12, 64,
+                                          torch.bfloat16, 0, gen)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    peaks = {}
+    for name, call in (("custom", blockwise_call(q, k, v, bias, g, 0,
+                                                 "custom")),
+                       ("autodiff", blockwise_call(q, k, v, bias, g, 0,
+                                                   "autodiff")),
+                       ("flash", flash_call(q, k, v, bias, g, 0))):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        peaks[name] = ((torch.cuda.max_memory_allocated() - base) / 2**30,
+                       time.perf_counter() - t0)
+        del out
+    print(f"phase 14 (b): peak device memory of one attention's forward and "
+          f"backward above its inputs at (1, {CTX_MEM_LEN}, 12, 64) bf16 "
+          f"causal, GiB (one call's wall s): "
+          + ", ".join(f"blockwise {n} {p:.3f} ({w:.3f} s)" if n != "flash"
+                      else f"the flash kernels {p:.3f} ({w:.3f} s)"
+                      for n, (p, w) in peaks.items()) + f" [{card}]",
+          flush=True)
+    if not peaks["custom"][0] < peaks["autodiff"][0]:
+        raise AssertionError(f"phase 14 (b): the custom backward's peak "
+                             f"{peaks['custom'][0]:.3f} GiB is not below "
+                             f"autodiff's {peaks['autodiff'][0]:.3f}")
+
+
+def ctx_train(card: str) -> dict:
+    """(c) GPT-2 small (f32 parameters, bf16 compute) at 4 x 2048 on a
+    context mesh of one, CTX_STEPS steps with attention ring, Ulysses and
+    flash from the same weights and batches: ring and Ulysses (blockwise
+    attention on one rank) launch no flash kernel, flash each of the four
+    12 times a step; losses within CTX_LOSS_ATOL and grad norms within
+    CTX_NORM_RTOL of the flash fit's. Returns the flash fit's launches."""
+    import torch
+
+    from kubeflow_tpu_torch.models.gpt import GPTConfig, GPTLM
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
+    from kubeflow_tpu_torch.train.data import synthetic_lm_dataset
+
+    cfg = GPTConfig.small(attention="flash", dropout_rate=0.0,
+                          max_len=TRAIN_LEN)
+    ds = synthetic_lm_dataset(n_train=TRAIN_BATCH * CTX_STEPS,
+                              n_test=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                              vocab_size=cfg.vocab_size, seed=SEED + 14)
+    batches = [(ds.x_train[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                ds.y_train[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+               for i in range(CTX_STEPS)]
+    init = GPTLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(SEED + 14)).state_dict()
+    runs = {}
+    for kind in ("flash", "ring", "ulysses"):
+        model = GPTLM(dataclasses.replace(cfg, attention=kind),
+                      device="cuda")
+        model.load_state_dict(init)
+        trainer = gpt_trainer(cfg, SEED, model=model, steps=CTX_STEPS,
+                              mesh=MeshConfig(data=1, context=1))
+        state = trainer.init_state()
+        rows, ms = [], []
+        zero_launches()  # this path's run starts here
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[kind] = (rows, ms, _launch_counts(), trainer.compute_dtype)
+        del trainer, state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    flash_rows = runs["flash"][0]
+    bad = []
+    for kind, (rows, ms, launched, dtype) in runs.items():
+        print(f"phase 14 (c): GPT-2 small {kind:7s} on a context mesh of "
+              f"one, {TRAIN_BATCH} x {TRAIN_LEN}, {dtype} compute: losses "
+              + ", ".join(f"{x:.6f}" for x, _ in rows) + "; grad norms "
+              + ", ".join(f"{n:.6f}" for _, n in rows) + "; step ms "
+              + ", ".join(f"{t:.2f}" for t in ms)
+              + f"; flash launches {launched} [{card}]", flush=True)
+        want = ({n: cfg.num_layers * CTX_STEPS for n in FLASH_KERNELS}
+                if kind == "flash" else dict.fromkeys(FLASH_KERNELS, 0))
+        if launched != want:
+            bad.append((kind, "launches", launched, want))
+        for (x, n), (xf, nf) in zip(rows, flash_rows):
+            if not (math.isfinite(x) and abs(x - xf) <= CTX_LOSS_ATOL
+                    and abs(n - nf) <= CTX_NORM_RTOL * nf):
+                bad.append((kind, x, xf, n, nf))
+    if bad:
+        raise AssertionError(f"phase 14 (c): {bad}")
+    return runs["flash"][2]
+
+
+def phase_context(card: str) -> dict:
+    """Phase 14 (a)-(c); returns the flash kernels' launches of (c)'s
+    flash fit."""
+    t0 = time.perf_counter()
+    ctx_kernels(card)
+    ctx_memory(card)
+    launches = ctx_train(card)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5597,6 +5956,8 @@ def main() -> int:
     lap("phase 6")
     phase_restart_warm(card)
     lap("phase 6 restart-warm")
+    context_launches = phase_context(card)
+    lap("phase 14")
     family_launches = phase_families(card)
     lap("phase 10")
     # phases 8 and 9 come after phase 6: run between phases 7 and 5, phase
@@ -5663,8 +6024,13 @@ def main() -> int:
     for name, n in moe_launches.items():
         launches[name] += n
     print(f"launches of the sharded and MoE paths (phase 13): "
-          f"{moe_launches}; the whole script {time.perf_counter() - t_main:.1f}"
-          f" s [{card}]", flush=True)
+          f"{moe_launches} [{card}]", flush=True)
+    for name, n in context_launches.items():
+        launches[name] += n
+    print(f"launches of the context path's flash fit (phase 14 (c); its "
+          f"ring and Ulysses fits launch none): {context_launches}; the "
+          f"whole script {time.perf_counter() - t_main:.1f} s [{card}]",
+          flush=True)
     timings.update(dropout_records)   # the flash kernels' summary is above
     record = {"kernels": [{
         "name": name,

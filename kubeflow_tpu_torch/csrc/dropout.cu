@@ -14,10 +14,19 @@
 // The function, for element i of the flattened (contiguous) input:
 //
 //   key  = (seed & 0xffffffff, seed >> 32)
-//   ctr  = (g & 0xffffffff, g >> 32, site, 0),  g = i / 4
-//   r    = Philox4x32-10(ctr, key)[i % 4]      (Salmon et al. 2011; the
+//   e    = (i / row) * row_stride + offset + i % row
+//   ctr  = (g & 0xffffffff, g >> 32, site, 0),  g = e / 4
+//   r    = Philox4x32-10(ctr, key)[e % 4]      (Salmon et al. 2011; the
 //                                              Random123 round and key
 //                                              schedule)
+//
+// e is the element's index in the whole tensor of which the input holds a
+// slice: rows of ``row`` elements that sit ``row_stride`` apart there,
+// starting at ``offset`` (a rank of a context axis holds L/ctx positions of
+// every sequence, and its masks are the whole sequence's). The plain input
+// has row = row_stride = n, offset 0, so e = i. The wrapper takes row,
+// row_stride and offset that are multiples of 4 (or row = n), so the 4
+// elements a thread takes are 4 consecutive elements of the whole.
 //   y[i] = r < threshold ? x[i] * scale : 0    (x[i] * scale in f32, then
 //                                              rounded to x's dtype)
 //
@@ -122,13 +131,15 @@ struct Elem<__half> : Elem16<__half, HalfCvt> {
 };
 
 // Backward is a template argument only so that the two passes carry their
-// own names in a profile: the arithmetic is the same function of its input
-template <typename T, bool Backward>
+// own names in a profile: the arithmetic is the same function of its input.
+// Sliced: rows of a larger tensor (row < n), whose element indices take a
+// division; a single row (the whole tensor) compiles without it.
+template <typename T, bool Backward, bool Sliced>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
-                   const int64_t* __restrict__ seed, int64_t n,
-                   uint32_t site, uint64_t threshold, float scale,
-                   bool vec) {
+                   const int64_t* __restrict__ seed, int64_t n, int64_t row,
+                   int64_t row_stride, int64_t offset, uint32_t site,
+                   uint64_t threshold, float scale, bool vec) {
   using E = Elem<T>;
   const uint64_t s = static_cast<uint64_t>(*seed);
   const uint2 key = make_uint2(static_cast<uint32_t>(s),
@@ -138,13 +149,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        g < groups; g += stride) {
+    const int64_t i0 = 4 * g;
+    const int64_t e0 = Sliced ? (i0 / row) * row_stride + offset + i0 % row
+                              : offset + i0;
+    const uint64_t c = static_cast<uint64_t>(e0) >> 2;
     const uint4 r4 = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(g),
-                   static_cast<uint32_t>(static_cast<uint64_t>(g) >> 32),
+        make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32),
                    site, 0u),
         key);
     const uint32_t r[4] = {r4.x, r4.y, r4.z, r4.w};
-    const int64_t i0 = 4 * g;
     if (vec && i0 + 4 <= n) {
       float v[4];
       E::split(reinterpret_cast<const typename E::Vec*>(x)[g], v);
@@ -161,36 +174,48 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, bool Backward>
-int launch(const void* x, void* y, const void* seed, long long n, int site,
+int launch(const void* x, void* y, const void* seed, long long n,
+           long long row, long long row_stride, long long offset, int site,
            unsigned long long threshold, float scale, int vec,
            cudaStream_t stream) {
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  dropout_kernel<T, Backward><<<static_cast<int>(blocks), kThreads, 0,
-                                stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<const int64_t*>(seed), n, static_cast<uint32_t>(site),
-      threshold, scale, vec != 0);
+  const dim3 grid(static_cast<unsigned>(blocks)), block(kThreads);
+  if (row == n)
+    dropout_kernel<T, Backward, false><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y),
+        static_cast<const int64_t*>(seed), n, row, row_stride, offset,
+        static_cast<uint32_t>(site), threshold, scale, vec != 0);
+  else
+    dropout_kernel<T, Backward, true><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y),
+        static_cast<const int64_t*>(seed), n, row, row_stride, offset,
+        static_cast<uint32_t>(site), threshold, scale, vec != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool Backward>
 int dispatch(const void* x, void* y, const void* seed, long long n,
+             long long row, long long row_stride, long long offset,
              int dtype, int site, unsigned long long threshold, float scale,
              int vec, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || row <= 0 || n % row || offset % 4 ||
+      (row != n && (row % 4 || row_stride % 4)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float, Backward>(x, y, seed, n, site, threshold, scale,
-                                     vec, s);
+      return launch<float, Backward>(x, y, seed, n, row, row_stride, offset,
+                                     site, threshold, scale, vec, s);
     case 1:
-      return launch<__nv_bfloat16, Backward>(x, y, seed, n, site, threshold,
-                                             scale, vec, s);
+      return launch<__nv_bfloat16, Backward>(x, y, seed, n, row, row_stride,
+                                             offset, site, threshold, scale,
+                                             vec, s);
     case 2:
-      return launch<__half, Backward>(x, y, seed, n, site, threshold, scale,
-                                      vec, s);
+      return launch<__half, Backward>(x, y, seed, n, row, row_stride,
+                                      offset, site, threshold, scale, vec,
+                                      s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -198,24 +223,30 @@ int dispatch(const void* x, void* y, const void* seed, long long n,
 
 }  // namespace
 
-// x, y: n contiguous elements of dtype (0 f32, 1 bf16, 2 f16); seed: one
-// int64 on the device; vec: x and y start 16-byte aligned (4 elements a
-// load). Returns cudaGetLastError() after the launch.
+// x, y: n contiguous elements of dtype (0 f32, 1 bf16, 2 f16); row,
+// row_stride, offset: where they sit in the whole tensor (n, n, 0 for the
+// whole); seed: one int64 on the device; vec: x and y start 16-byte
+// aligned (4 elements a load). Returns cudaGetLastError() after the
+// launch, cudaErrorInvalidValue for a layout the kernel does not take.
 extern "C" int kft_dropout_fwd(const void* x, void* y, const void* seed,
-                               long long n, int dtype, int site,
+                               long long n, long long row,
+                               long long row_stride, long long offset,
+                               int dtype, int site,
                                unsigned long long threshold, float scale,
                                int vec, void* stream) {
-  return dispatch<false>(x, y, seed, n, dtype, site, threshold, scale, vec,
-                         stream);
+  return dispatch<false>(x, y, seed, n, row, row_stride, offset, dtype, site,
+                         threshold, scale, vec, stream);
 }
 
 // dx from dy: the forward's function of dy, its mask recomputed
 extern "C" int kft_dropout_bwd(const void* dy, void* dx, const void* seed,
-                               long long n, int dtype, int site,
+                               long long n, long long row,
+                               long long row_stride, long long offset,
+                               int dtype, int site,
                                unsigned long long threshold, float scale,
                                int vec, void* stream) {
-  return dispatch<true>(dy, dx, seed, n, dtype, site, threshold, scale, vec,
-                        stream);
+  return dispatch<true>(dy, dx, seed, n, row, row_stride, offset, dtype,
+                        site, threshold, scale, vec, stream);
 }
 
 extern "C" const char* kft_cuda_error_string(int err) {

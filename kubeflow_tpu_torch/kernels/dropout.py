@@ -4,7 +4,12 @@ the autograd function the models call.
 
 The mask of element i of a contiguous tensor is a function of (seed, site,
 i) alone: Philox4x32-10 keyed by the 64-bit ``seed``, counter (i // 4, site,
-0), word i % 4, kept where it is below ``ceil(keep * 2^32)``; a kept element
+0), word i % 4, kept where it is below ``ceil(keep * 2^32)``. A tensor that
+is a slice of a larger one (a context rank's positions of every sequence)
+takes ``span`` = (row, row_stride, offset): its rows of ``row`` elements sit
+``row_stride`` apart in the whole, from ``offset``, and element i draws the
+whole's element (i // row) * row_stride + offset + i % row, so the slices'
+masks are the whole's. A kept element
 becomes ``x * scale`` (scale the float32 1 / keep, the product in float32,
 rounded to x's dtype), a dropped one 0. The seed is a 0-dim int64 tensor on
 x's device, read by pointer when the kernel runs, so a CUDA graph that
@@ -48,9 +53,9 @@ PHILOX_ROUNDS = 10
 def _lib() -> ctypes.CDLL:
     """Build (at first use), load and declare the C entry points."""
     lib = load("dropout_fwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.kft_dropout_fwd, lib.kft_dropout_bwd):
-        fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, ctypes.c_ulonglong,
+        fn.argtypes = [p, p, p, ll, ll, ll, ll, i, i, ctypes.c_ulonglong,
                        ctypes.c_float, i, p]
         fn.restype = i
     lib.kft_cuda_error_string.argtypes = [i]
@@ -98,39 +103,52 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def dropout_draws(seed: torch.Tensor, site: int, n: int) -> torch.Tensor:
+def dropout_draws(seed: torch.Tensor, site: int, n: int,
+                  span: tuple[int, int, int] | None = None) -> torch.Tensor:
     """The n 32-bit draws (int64) of elements 0..n-1 at ``site``, on the
-    seed's device."""
+    seed's device; with ``span`` those of the whole's elements they are
+    (the module docstring)."""
     dev = seed.device
-    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=dev)
     s = seed.reshape(()).to(torch.int64)
-    words = philox4x32_10(g & _MASK32, g >> 32, torch.full_like(g, site),
-                          torch.zeros_like(g), s & _MASK32,
-                          (s >> 32) & _MASK32)
-    return torch.stack(words, dim=1).reshape(-1)[:n]
+    key = (s & _MASK32, (s >> 32) & _MASK32)
+    if span is None:
+        g = torch.arange((n + 3) // 4, dtype=torch.int64, device=dev)
+        words = philox4x32_10(g & _MASK32, g >> 32, torch.full_like(g, site),
+                              torch.zeros_like(g), *key)
+        return torch.stack(words, dim=1).reshape(-1)[:n]
+    row, stride, offset = span
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    e = (i // row) * stride + offset + i % row
+    g = e // 4
+    words = torch.stack(philox4x32_10(
+        g & _MASK32, g >> 32, torch.full_like(g, site), torch.zeros_like(g),
+        *key), dim=1)
+    return words.gather(1, (e % 4)[:, None])[:, 0]
 
 
-def dropout_mask(seed: torch.Tensor, site: int, rate: float,
-                 shape) -> torch.Tensor:
+def dropout_mask(seed: torch.Tensor, site: int, rate: float, shape,
+                 span: tuple[int, int, int] | None = None) -> torch.Tensor:
     """The boolean keep-mask of a tensor of ``shape``."""
     n = math.prod(shape)
-    return (dropout_draws(seed, site, n) < keep_threshold(rate)).reshape(
-        shape)
+    return (dropout_draws(seed, site, n, span) < keep_threshold(rate)
+            ).reshape(shape)
 
 
 def dropout_plain(x: torch.Tensor, seed: torch.Tensor, rate: float,
-                  site: int = 0) -> torch.Tensor:
+                  site: int = 0, span: tuple[int, int, int] | None = None
+                  ) -> torch.Tensor:
     """The kernels' function in PyTorch: kept elements x * scale (in
     float32, rounded to x's dtype), the others 0."""
     _check_rate(rate)
-    keep = dropout_mask(seed, site, rate, x.shape)
+    keep = dropout_mask(seed, site, rate, x.shape, span)
     scaled = (x.float() * keep_scale(rate)).to(x.dtype)
     return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
 
 
 def _launch(kernel, fn_name: str, x: torch.Tensor, seed: torch.Tensor,
-            rate: float, site: int) -> torch.Tensor:
+            rate: float, site: int, span: tuple[int, int, int] | None
+            ) -> torch.Tensor:
     """One launch of the forward or backward kernel; raises on any input
     it does not take."""
     _check_rate(rate)
@@ -148,17 +166,25 @@ def _launch(kernel, fn_name: str, x: torch.Tensor, seed: torch.Tensor,
                          f"on {seed.device}")
     if not 0 <= site <= _MASK32:
         raise ValueError(f"{kernel.name}: site {site} is not a 32-bit value")
+    n = x.numel()
+    row, stride, offset = span or (n, n, 0)
+    if n and (row <= 0 or n % row or offset % 4
+              or (row != n and (row % 4 or stride % 4))):
+        raise ValueError(
+            f"{kernel.name}: span (row {row}, row_stride {stride}, offset "
+            f"{offset}) of {n} elements: the kernel takes rows that divide "
+            "the input, and rows, strides and offsets in multiples of 4")
     y = torch.empty_like(x)
-    if x.numel() == 0:
+    if n == 0:
         return y
     lib = _lib()
     vec = int(x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, fn_name)(
-            x.data_ptr(), y.data_ptr(), seed.data_ptr(), x.numel(),
-            _DTYPES[x.dtype], site, keep_threshold(rate), keep_scale(rate),
-            vec, stream)
+            x.data_ptr(), y.data_ptr(), seed.data_ptr(), n, row, stride,
+            offset, _DTYPES[x.dtype], site, keep_threshold(rate),
+            keep_scale(rate), vec, stream)
     if err != 0:
         raise RuntimeError(
             f"{kernel.name} launch failed: CUDA error {err} "
@@ -168,39 +194,46 @@ def _launch(kernel, fn_name: str, x: torch.Tensor, seed: torch.Tensor,
 
 
 def dropout_fwd(x: torch.Tensor, seed: torch.Tensor, rate: float,
-                site: int = 0) -> torch.Tensor:
+                site: int = 0, span: tuple[int, int, int] | None = None
+                ) -> torch.Tensor:
     """Launch the forward kernel on a contiguous CUDA tensor."""
-    return _launch(DROPOUT_FWD, "kft_dropout_fwd", x, seed, rate, site)
+    return _launch(DROPOUT_FWD, "kft_dropout_fwd", x, seed, rate, site,
+                   span)
 
 
 def dropout_bwd(dy: torch.Tensor, seed: torch.Tensor, rate: float,
-                site: int = 0) -> torch.Tensor:
+                site: int = 0, span: tuple[int, int, int] | None = None
+                ) -> torch.Tensor:
     """Launch the backward kernel: dx from dy under the recomputed mask."""
-    return _launch(DROPOUT_BWD, "kft_dropout_bwd", dy, seed, rate, site)
+    return _launch(DROPOUT_BWD, "kft_dropout_bwd", dy, seed, rate, site,
+                   span)
 
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate, site):
+    def forward(ctx, x, seed, rate, site, span):
         ctx.save_for_backward(seed)
-        ctx.rate, ctx.site = rate, site
+        ctx.rate, ctx.site, ctx.span = rate, site, span
         if x.is_cuda:
-            return dropout_fwd(x.contiguous(), seed, rate, site)
-        return dropout_plain(x, seed, rate, site)
+            return dropout_fwd(x.contiguous(), seed, rate, site, span)
+        return dropout_plain(x, seed, rate, site, span)
 
     @staticmethod
     def backward(ctx, g):
         (seed,) = ctx.saved_tensors
         if g.is_cuda:
-            dx = dropout_bwd(g.contiguous(), seed, ctx.rate, ctx.site)
+            dx = dropout_bwd(g.contiguous(), seed, ctx.rate, ctx.site,
+                             ctx.span)
         else:
-            dx = dropout_plain(g, seed, ctx.rate, ctx.site)
-        return dx, None, None, None
+            dx = dropout_plain(g, seed, ctx.rate, ctx.site, ctx.span)
+        return dx, None, None, None, None
 
 
 def dropout(x: torch.Tensor, seed: torch.Tensor, rate: float,
-            site: int = 0) -> torch.Tensor:
-    """Dropout of x at ``rate`` (in (0, 1)) under the mask of (seed, site):
-    the kernels on a CUDA tensor, the plain version on a CPU one; the
-    backward recomputes the mask."""
-    return _Dropout.apply(x, seed, rate, site)
+            site: int = 0, span: tuple[int, int, int] | None = None
+            ) -> torch.Tensor:
+    """Dropout of x at ``rate`` (in (0, 1)) under the mask of (seed, site)
+    (and ``span``, the whole x is a slice of): the kernels on a CUDA
+    tensor, the plain version on a CPU one; the backward recomputes the
+    mask."""
+    return _Dropout.apply(x, seed, rate, site, span)

@@ -1,7 +1,9 @@
 """The port's model library — counterpart of ``kubeflow_tpu/models``.
 
-The pipeline-parallel models (``GPTPipelineLM``, ``BertPipelineClassifier``)
-come with the parallelism slice (ROADMAP Queue A item 8).
+GPT and the BERT models train under a context axis with
+``attention="ring"|"ulysses"``. The pipeline-parallel models
+(``GPTPipelineLM``, ``BertPipelineClassifier``) come with the pipeline
+axis (ROADMAP Queue A item 8).
 """
 
 from kubeflow_tpu_torch.models.bert import (

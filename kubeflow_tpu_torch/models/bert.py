@@ -1,12 +1,15 @@
 """BERT encoder family — counterpart of ``kubeflow_tpu/models/bert.py``.
 
 Post-LN encoder blocks with pluggable attention: "dense" (this file, with
-attention dropout under a per-block device seed) or "flash"
+attention dropout under a per-block device seed), "flash"
 (``parallel/ring_attention.flash_attention``: on the card the hand-written
-kernels, non-causal, under the padding bias); "ring"/"ulysses" shard the
-sequence over a device mesh and are not ported yet. Padding is
-derived inside the model (``pad_token_id``), as an additive −1e9 bias of
-shape (B, 1, 1, L).
+kernels, non-causal, under the padding bias), or "ring"/"ulysses", which
+shard the sequence over a gang's context axis (``parallel.mesh.
+context_axis``): a rank then holds L/ctx positions of every row, numbered
+globally, the padding bias of its keys travels with them, and the
+classifier's [CLS] row, which context rank 0 holds, is broadcast to the
+axis. Padding is derived inside the model (``pad_token_id``), as an
+additive −1e9 bias of shape (B, 1, 1, L).
 
 Parameters are float32 in flax's names and layouts (``encoder/layer_0/
 attention/query/kernel`` (hidden, heads, head_dim), ...; ``convert.py``);
@@ -31,7 +34,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kubeflow_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_FSDP,
+    AXIS_MODEL,
+    ContextAxis,
+    current_context_axis,
+)
 from kubeflow_tpu_torch.parallel.moe import MOE_PARTITION_RULES, MoeMlp
 from kubeflow_tpu_torch.parallel.partitioner import P
 from kubeflow_tpu_torch.models.layers import (
@@ -47,6 +55,7 @@ from kubeflow_tpu_torch.models.layers import (
     with_compute_dtype,
 )
 from kubeflow_tpu_torch.train.data import IGNORE_LABEL
+from kubeflow_tpu_torch.train.losses import WeightedTokens
 from kubeflow_tpu_torch.utils.device import select_device
 
 #: the JAX package's rules, on flax paths (``parallel/partitioner.py``)
@@ -86,10 +95,10 @@ def _resolve_attention(kind: str) -> Callable:
 
         return flash_attention
     if kind in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"{kind} attention shards the sequence over the context axis of "
-            "a device mesh, which the port does not execute yet (ROADMAP "
-            "Queue A item 8)")
+        from kubeflow_tpu_torch.parallel import ring_attention as ra
+
+        return {"ring": ra.ring_attention,
+                "ulysses": ra.ulysses_attention}[kind]
     raise ValueError(f"unknown attention kind {kind!r}")
 
 
@@ -104,7 +113,7 @@ class BertConfig:
     dropout_rate: float = 0.1
     pad_token_id: int = 0
     dtype: str = "float32"      # compute dtype: float32 | bfloat16
-    attention: str = "dense"    # dense | flash (ring | ulysses: later slice)
+    attention: str = "dense"    # dense | flash | ring | ulysses
     attention_block: int = 128
     # recompute each encoder block in the backward (torch.utils.checkpoint)
     remat: bool = False
@@ -196,13 +205,13 @@ class BertLayer(nn.Module):
         output's (2)."""
         rate = self.cfg.dropout_rate if train else 0.0
         y = self.attention(x, bias, train, seed)
-        x = self.ln_attn(x + dropout(y, rate, seed, site=1))
+        x = self.ln_attn(x + dropout(y, rate, seed, site=1, sequence=True))
         if self.cfg.moe_experts:
             y = self.moe(x)
         else:
             y = F.gelu(self.mlp_up(x), approximate="tanh")  # flax nn.gelu
             y = self.mlp_down(y)
-        return self.ln_mlp(x + dropout(y, rate, seed, site=2))
+        return self.ln_mlp(x + dropout(y, rate, seed, site=2, sequence=True))
 
 
 class BertEmbeddings(nn.Module):
@@ -232,14 +241,17 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids, train: bool = False, token_type_ids=None,
                 seed: torch.Tensor | None = None):
         x = self.tokens()(input_ids)
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        axis = current_context_axis()
+        l, dev = input_ids.shape[1], input_ids.device
+        pos = (torch.arange(l, device=dev) if axis is None
+               else axis.positions(l, dev))
         x = x + self.position_embed(pos[None, :])
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = x + self.type_embed(token_type_ids)
         x = self.ln_embed(x)
         rate = self.cfg.dropout_rate if train else 0.0
-        return dropout(x, rate, seed)
+        return dropout(x, rate, seed, sequence=True)
 
 
 class BertEncoder(nn.Module):
@@ -255,7 +267,7 @@ class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, device: str | torch.device = "cuda",
                  token_embed: VocabEmbed | None = None):
         super().__init__()
-        _resolve_attention(cfg.attention)  # refuses ring/ulysses up front
+        _resolve_attention(cfg.attention)  # refuses an unknown kind
         dev = select_device(device)
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg, dev, token_embed)
@@ -272,6 +284,10 @@ class BertEncoder(nn.Module):
     def forward(self, input_ids, train: bool = False, token_type_ids=None,
                 generator=None):
         c = self.cfg
+        if current_context_axis() is not None:
+            from kubeflow_tpu_torch.models.gpt import refuse_context
+
+            refuse_context(c.attention)
         seeds = block_seeds(c.num_layers + 1, train, c.dropout_rate,
                             generator, input_ids.device)
         x = self.embeddings(input_ids, train, token_type_ids, seeds[0])
@@ -313,10 +329,37 @@ class BertForSequenceClassification(nn.Module):
         seed = block_seeds(1, train, self.cfg.dropout_rate, generator,
                            input_ids.device)[0]
         x = self.encoder(input_ids, train, generator=generator)
-        pooled = torch.tanh(self.pooler(x[:, 0]))
+        cls = x[:, 0]
+        axis = current_context_axis()
+        if axis is not None:  # [CLS] is position 0: context rank 0's
+            cls = _FromFirst.apply(cls, axis)
+        pooled = torch.tanh(self.pooler(cls))
         pooled = dropout(pooled, self.cfg.dropout_rate if train else 0.0,
                          seed)
         return self.classifier(pooled).float()
+
+
+class _FromFirst(torch.autograd.Function):
+    """The tensor of the context axis' first rank on every rank (a
+    broadcast in the context group); the backward sums the ranks'
+    cotangents onto the first rank, whose input alone was used."""
+
+    @staticmethod
+    def forward(ctx, x, axis: ContextAxis):
+        import torch.distributed as dist
+
+        ctx.axis = axis
+        x = x.contiguous().clone()
+        dist.broadcast(x, axis.ranks[0], group=axis.group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.axis.group)
+        return (g if ctx.axis.index == 0 else torch.zeros_like(g)), None
 
 
 class BertForMaskedLM(nn.Module):
@@ -386,5 +429,25 @@ def masked_lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor):
     return per_ex, acc
 
 
+def _masked_token_sums(logits, labels):
+    """The per-row (Σ loss·w, Σ hit·w, Σ w) over the masked positions."""
+    per_tok, w, safe = _masked_token_losses(logits, labels)
+    hit = (logits.argmax(-1) == safe).float()
+    return (per_tok * w).sum(-1), (hit * w).sum(-1), w.sum(-1)
+
+
+# the gang's form of both (train/losses.py): MLM labels are the positions'
+# own, so they need no shift
+masked_lm_loss.weighted = masked_lm_eval_metrics.weighted = WeightedTokens(
+    _masked_token_sums, shift=0, fill=IGNORE_LABEL)
+
+
+def _shards_sequence(self) -> bool:
+    """Whether the model trains under a context axis: its attention is
+    ring or Ulysses attention."""
+    return self.cfg.attention in ("ring", "ulysses")
+
+
 for _cls in (BertEncoder, BertForSequenceClassification, BertForMaskedLM):
     _cls.PARTITION_RULES = PARTITION_RULES
+    _cls.shards_sequence = property(_shards_sequence)

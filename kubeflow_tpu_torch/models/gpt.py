@@ -13,6 +13,11 @@ dtype ``cfg.dtype`` at use, as ``nn.Dense(dtype=...)`` and
 ``nn.Embed(dtype=...)`` do, and the norms take their statistics in float32
 and return the compute dtype.
 
+Under a gang's context axis (``parallel.mesh.context_axis``) a rank holds
+L/ctx positions of every row, from the embedding to the logits: learned
+positions and rope take global positions, and only ring or Ulysses
+attention communicates.
+
 Decoding keeps the JAX package's static-shape cache: one (B, C, KVH, D)
 buffer per layer written at a per-row index and attended under a position
 mask. The port updates the cache in place (the JAX package returns a new
@@ -40,10 +45,15 @@ from kubeflow_tpu_torch.models.layers import (
     linear_then_bias,
     remat,
 )
-from kubeflow_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_FSDP,
+    AXIS_MODEL,
+    current_context_axis,
+)
 from kubeflow_tpu_torch.parallel.moe import MOE_PARTITION_RULES, MoeMlp
 from kubeflow_tpu_torch.parallel.partitioner import P
 from kubeflow_tpu_torch.parallel.rope import apply_rope
+from kubeflow_tpu_torch.train.losses import WeightedTokens
 from kubeflow_tpu_torch.utils.device import select_device
 
 #: the JAX package's rules, on flax paths (``parallel/partitioner.py``)
@@ -88,7 +98,7 @@ class GPTConfig:
     max_len: int = 1024
     dropout_rate: float = 0.1   # applied only with train=True
     dtype: str = "float32"      # compute dtype: float32 | bfloat16
-    attention: str = "dense"    # dense | flash (ring | ulysses: later slice)
+    attention: str = "dense"    # dense | flash | ring | ulysses
     attention_block: int = 128
     norm: str = "layernorm"     # layernorm | rmsnorm
     activation: str = "gelu"    # gelu | swiglu
@@ -296,8 +306,8 @@ class CausalSelfAttention(nn.Module):
                            device)
         self.attn_out = Dense(c.num_heads * hd, c.hidden_size, c.use_bias,
                               dt, device)
-        # dense is the causal reference below; other kinds resolve (and
-        # refuse the unported ones) when the model is built
+        # dense is the causal reference below; other kinds resolve when
+        # the model is built
         self.attn_fn = (None if c.attention == "dense"
                         else _resolve_attention(c.attention))
 
@@ -309,7 +319,7 @@ class CausalSelfAttention(nn.Module):
         return (k.repeat_interleave(group, dim=2),
                 v.repeat_interleave(group, dim=2))
 
-    def _attend(self, q, k, v, bias, dropout_rng=None):
+    def _attend(self, q, k, v, bias, dropout_rng=None, **kw):
         c = self.cfg
         k, v = self._repeat_kv(k, v)
         if self.attn_fn is None:
@@ -317,7 +327,8 @@ class CausalSelfAttention(nn.Module):
                 q, k, v, bias, dropout_rng=dropout_rng,
                 dropout_rate=c.dropout_rate if dropout_rng is not None
                 else 0.0, window=c.attention_window)
-        kw = {"window": c.attention_window} if c.attention_window else {}
+        if c.attention_window:
+            kw["window"] = c.attention_window
         return self.attn_fn(q, k, v, bias, dropout_rng=None, dropout_rate=0.0,
                             block=c.attention_block, causal=True, **kw)
 
@@ -330,6 +341,12 @@ class CausalSelfAttention(nn.Module):
         v = self.value(x).view(b, l, self.kv_heads, self.head_dim)
         if cache is not None:
             y = self._cached_attention(q, k, v, cache, layer, prefill)
+        elif c.position_embedding == "rope" and c.attention in ("ring",
+                                                               "ulysses"):
+            # ring and Ulysses shard the sequence: they rotate, by global
+            # position, inside their exchange (JAX gpt.py:248-253)
+            y = self._attend(q, k, v, bias, dropout_rng,
+                             rope_theta=c.rope_theta)
         else:
             if c.position_embedding == "rope":
                 pos = torch.arange(l, device=x.device)
@@ -444,17 +461,19 @@ class GPTBlock(nn.Module):
         MOE_DROPLESS_MAX_LEN tokens dropless, anything else by capacity."""
         c = self.cfg
         y = self.attention(self.ln_attn(x), bias, cache, layer, prefill, seed)
-        x = x + dropout(y, c.dropout_rate, seed, site=1)
+        x = x + dropout(y, c.dropout_rate, seed, site=1, sequence=True)
         h = self.ln_mlp(x)
         if c.moe_experts:
             h = self.moe(h, dropless=cache is not None
                          and h.shape[1] <= MOE_DROPLESS_MAX_LEN)
-            return x + dropout(h, c.dropout_rate, seed, site=2)
+            return x + dropout(h, c.dropout_rate, seed, site=2,
+                               sequence=True)
         if c.activation == "swiglu":
             h = F.silu(self.mlp_gate(h)) * self.mlp_up(h)
         else:
             h = F.gelu(self.mlp_up(h), approximate="tanh")  # flax nn.gelu
-        return x + dropout(self.mlp_down(h), c.dropout_rate, seed, site=2)
+        return x + dropout(self.mlp_down(h), c.dropout_rate, seed, site=2,
+                           sequence=True)
 
 
 class GPTLM(nn.Module):
@@ -492,6 +511,12 @@ class GPTLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.token_embed.weight.device
+
+    @property
+    def shards_sequence(self) -> bool:
+        """Whether the model trains under a context axis: its attention
+        is ring or Ulysses attention."""
+        return self.cfg.attention in ("ring", "ulysses")
 
     def with_compute_dtype(self, dtype: str) -> "GPTLM":
         """This model computing in ``dtype``: a module that shares this
@@ -542,6 +567,9 @@ class GPTLM(nn.Module):
         (torch.utils.checkpoint); the decode path is never wrapped."""
         c = self.cfg
         l = input_ids.shape[1]
+        axis = current_context_axis()
+        if axis is not None:
+            refuse_context(c.attention, cache is not None)
         seeds = block_seeds(c.num_layers + 1, train, c.dropout_rate,
                             generator, input_ids.device)
         x = self.token_embed(input_ids)
@@ -551,12 +579,14 @@ class GPTLM(nn.Module):
             pos = cache.index[:, None] + torch.arange(l, device=x.device)
             bias = None
         else:
-            pos = torch.arange(l, device=x.device)[None, :]
+            # under a context axis this rank's chunk of global positions
+            pos = (torch.arange(l, device=x.device) if axis is None
+                   else axis.positions(l, x.device))[None, :]
             mask = input_ids != self.pad_token_id
             bias = torch.where(mask[:, None, None, :], 0.0, -1e9).to(x.dtype)
         if c.position_embedding == "learned":
             x = x + self.position_embed(pos)
-        x = dropout(x, c.dropout_rate, seeds[0])
+        x = dropout(x, c.dropout_rate, seeds[0], sequence=True)
         for i, block in enumerate(self.layers):
             if c.remat and cache is None:
                 x = remat(block, x, bias, None, i, False, seeds[i + 1])
@@ -570,6 +600,21 @@ class GPTLM(nn.Module):
         else:
             logits = self.lm_head(x)
         return logits.float()
+
+
+def refuse_context(attention: str, decoding: bool = False) -> None:
+    """Raise when a forward under a context axis of more than one rank
+    cannot shard the sequence: only ring and Ulysses attention exchange
+    keys across the axis, and decoding is one process's."""
+    if decoding:
+        raise NotImplementedError(
+            "a KV-cache forward under a context axis: decoding runs on one "
+            "process")
+    if attention not in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention {attention!r} under a context axis: each rank holds "
+            "a chunk of the sequence, and only ring and ulysses attention "
+            "exchange keys across the axis")
 
 
 def causal_lm_loss(logits: torch.Tensor,
@@ -588,6 +633,23 @@ def causal_lm_eval_metrics(logits: torch.Tensor, labels: torch.Tensor):
     denom = w.sum(-1).clamp_min(1.0)
     hit = (logits[:, :-1].argmax(-1) == labels[:, 1:].long()).float()
     return (per_tok * w).sum(-1) / denom, (hit * w).sum(-1) / denom
+
+
+def _causal_token_sums(logits, aligned):
+    """The per-row (Σ loss·w, Σ hit·w, Σ w) of next-token labels already
+    aligned to the logits' positions (``WeightedTokens.align``)."""
+    per_tok = F.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]),
+        aligned.reshape(-1).long(), reduction="none").view(aligned.shape)
+    w = (aligned != 0).float()
+    hit = (logits.argmax(-1) == aligned.long()).float()
+    return (per_tok * w).sum(-1), (hit * w).sum(-1), w.sum(-1)
+
+
+# the gang's form of both (train/losses.py): labels shift left by one over
+# the whole sequence, the last position's label is the pad id 0
+causal_lm_loss.weighted = causal_lm_eval_metrics.weighted = WeightedTokens(
+    _causal_token_sums, shift=1, fill=0)
 
 
 def _shifted_token_loss(logits, labels):

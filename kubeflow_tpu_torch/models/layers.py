@@ -82,21 +82,32 @@ def _host_seeds(n: int, generator: torch.Generator) -> torch.Tensor:
     return torch.randint(0, 2**62, (n,), generator=generator)
 
 
-def dropout(x: torch.Tensor, rate: float, rng, site: int = 0) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng, site: int = 0,
+            sequence: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate); the identity without ``rng`` or at rate 0,
     zeros at rate 1. ``rng`` is a 0-dim int64 seed on x's device (the mask
     is a function of (seed, site, element index): ``kernels/dropout.py``,
     the hand-written kernel on the card) or a CPU ``torch.Generator``, from
     which one seed is drawn. ``site`` tells apart the masks of the sites
-    that share one seed."""
+    that share one seed. ``sequence``: x is (B, L, ...) positions of its
+    rows; under a context axis its element indices are those of the whole
+    sequence's tensor, so a context gang draws one process's masks."""
     if rng is None or not rate:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     if isinstance(rng, torch.Generator):
         rng = _host_seeds(1, rng)[0].to(x.device)
-    return device_dropout(x, rng, rate, site)
+    span = None
+    if sequence:
+        from kubeflow_tpu_torch.parallel.mesh import current_context_axis
+
+        axis = current_context_axis()
+        if axis is not None:  # this rank's rows of L/ctx positions
+            row = x[0].numel()
+            span = (row, row * axis.size, row * axis.index)
+    return device_dropout(x, rng, rate, site, span)
 
 
 def block_seeds(n: int, train: bool, rate: float, generator,
@@ -125,15 +136,26 @@ def remat(block: nn.Module, *args):
     (``train/lora.py``'s merged weights) the module's own parameters are
     back in place by the time the backward runs, so the tensors are bound
     again for the recompute; an FSDP2 unit (``parallel/sharding.py``)
-    gathers its own parameters again instead. A seed among ``args``
-    redraws its masks."""
+    gathers its own parameters again instead. It also runs under the
+    context axis this forward saw: on the card autograd recomputes on its
+    device thread, which sees none of the caller's context variables. A
+    seed among ``args`` redraws its masks."""
+    from kubeflow_tpu_torch.parallel.mesh import context_axis, \
+        current_context_axis
+
+    axis = current_context_axis()
     fsdp = sys.modules.get("torch.distributed.fsdp")  # loaded if in use
     if fsdp is not None and isinstance(block, fsdp.FSDPModule):
-        return checkpoint(block, *args, use_reentrant=False)
-    tensors = dict(block.named_parameters())
+        call = block
+    else:
+        tensors = dict(block.named_parameters())
+
+        def call(*a):
+            return torch.func.functional_call(block, tensors, a)
 
     def run(*a):
-        return torch.func.functional_call(block, tensors, a)
+        with context_axis(axis):
+            return call(*a)
 
     return checkpoint(run, *args, use_reentrant=False)
 

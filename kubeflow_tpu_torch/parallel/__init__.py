@@ -1,8 +1,9 @@
 """Parallelism layer of the port — counterpart of
 ``kubeflow_tpu/parallel``: mesh building (``mesh.py``, a gang's ranks over
 the JAX package's named axes), the partitioner and sharding rules, expert
-dispatch (``moe.py``) and attention (``ring_attention.py``). The data,
-fsdp and expert axes execute; model, context and pipeline are ROADMAP
+dispatch (``moe.py``) and attention (``ring_attention.py``: flash,
+blockwise, and the context axis' ring and Ulysses attention). The data,
+fsdp, expert and context axes execute; model and pipeline are ROADMAP
 Queue A item 8. ``ring_attention`` loads the kernels' wrappers, so it is
 imported when first named."""
 

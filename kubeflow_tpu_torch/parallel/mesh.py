@@ -4,7 +4,7 @@ The canonical axis vocabulary:
   data     pure data parallel (gradient all-reduce)
   fsdp     data parallel with sharded params/optimizer (ZeRO-3; FSDP2)
   model    tensor parallel (not executed yet: ROADMAP Queue A item 8)
-  context  sequence/context parallel (not executed yet: item 8)
+  context  sequence/context parallel (ring and Ulysses attention)
   pipeline pipeline stages (not executed yet: item 8)
   expert   MoE expert parallel (all-to-all dispatch)
 
@@ -16,6 +16,12 @@ gang's ranks out over the six axes in the JAX package's device order.
 that it can be held against the JAX package's device arrays; ``Mesh`` wraps
 the array and builds the ``torch.distributed.device_mesh.DeviceMesh`` over
 the live process group when one is asked for.
+
+``context_axis`` plays the part of the JAX package's ambient mesh for the
+context axis: while it is entered, ring and Ulysses attention
+(``ring_attention.py``) exchange over its group and the models number
+their positions from its chunk, as ``jax.set_mesh`` makes the context
+axis visible to ``shard_map`` and the partitioner.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import contextvars
 import math
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 
@@ -205,13 +212,63 @@ def build_multislice_mesh(num_slices: int, config: MeshConfig | None = None,
     return mesh
 
 
+# ---------------------------------------------------------------- context axis
+
+
+@dataclass(frozen=True)
+class ContextAxis:
+    """This rank's place on a gang's context axis: its position ``index``
+    among the ``size`` ranks that split every sequence, the process group
+    over them and their global ranks in axis order (the ring's order). A
+    rank holds positions [index·L_loc, (index + 1)·L_loc) of each row."""
+
+    index: int
+    size: int
+    group: Any
+    ranks: tuple[int, ...]
+
+    def positions(self, l_loc: int, device=None):
+        """The global positions of this rank's L_loc-long chunk: the one
+        definition the models' positions, rope and the ring's causal
+        masks share (JAX ``_ring_positions``)."""
+        import torch
+
+        return torch.arange(self.index * l_loc, (self.index + 1) * l_loc,
+                            device=device)
+
+
+_CONTEXT_AXIS = contextvars.ContextVar("kft_context_axis", default=None)
+
+
+class context_axis:
+    """Context manager making ``axis`` (a ContextAxis, or None for no
+    context axis) the one the attention and the models see."""
+
+    def __init__(self, axis: ContextAxis | None):
+        self.axis = axis
+
+    def __enter__(self):
+        self._tok = _CONTEXT_AXIS.set(self.axis)
+        return self.axis
+
+    def __exit__(self, *exc):
+        _CONTEXT_AXIS.reset(self._tok)
+        return False
+
+
+def current_context_axis() -> ContextAxis | None:
+    """The entered context axis of more than one rank, else None."""
+    axis = _CONTEXT_AXIS.get()
+    return axis if axis is not None and axis.size > 1 else None
+
+
 # ---------------------------------------------------------------- manual region
 
 # Marks code running inside a pipeline stage body, where the collective
-# constructs (MoE dispatch, ring attention) take their single-group form
-# instead of opening their own exchange; the JAX package's marker around
-# gpipe's shard_map bodies. No pipeline runs in the port yet (ROADMAP Queue
-# A item 8), so nothing sets it but the tests.
+# constructs (MoE dispatch, ring and Ulysses attention) take their
+# single-group form instead of opening their own exchange; the JAX package's
+# marker around gpipe's shard_map bodies. No pipeline runs in the port yet
+# (ROADMAP Queue A item 8), so nothing sets it but the tests.
 _IN_MANUAL_REGION = contextvars.ContextVar("kft_in_manual_region",
                                            default=False)
 

@@ -10,15 +10,24 @@ FSDP: parameters, gradients and Adam state sharded over ``fsdp`` on the dim
 EP:   the stacked expert weights sharded over ``expert`` on dim 0
       (``MoeMlp.shard_experts``); their gradients are reduced over the
       ranks that hold the same experts.
+CP:   every row's sequence split over ``context`` (ring and Ulysses
+      attention exchange keys across it); the ranks of one data index get
+      the same rows, each its chunk of positions, and every parameter's
+      gradient is summed over them too.
 
 The specs are the JAX package's (``parallel/partitioner.py``), derived on
 the flax path and shape of each parameter (``convert.flax_layout``) and
-carried over to the port's layout. A gang member computes the mean loss
-of its own rows; the gradient of the gang's objective is the mean over the
-data-like ranks, which every reduction below divides by. The batch
-helpers take tensors: every process holding the whole global batch
-(``put_global``, the seed-deterministic pipeline) or only its own rows
-(``put_process_local``, ``train/data.load_dataset_shards``).
+carried over to the port's layout. The gang trains the JAX package's
+objective, the loss over the global batch. A weighted token loss
+(``train/losses.py``) backpropagates, on each member, its own sum scaled
+by the data-like extent over the gang's whole count; any other loss, its
+own value over the context extent (every data-like member's rows weigh
+the same). The gradient reductions below sum over the data-like and
+context ranks and divide by the data-like extent. The batch helpers take
+tensors: every process holding the whole global batch (``put_global``,
+the seed-deterministic pipeline) or only its own rows
+(``put_process_local``, ``train/data.load_dataset_shards``), then each
+member's chunk of the sequence (``put_sequence``).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_MODEL,
     AXIS_PIPELINE,
     DATA_LIKE_AXES,
+    ContextAxis,
     Mesh,
 )
 from kubeflow_tpu_torch.parallel.partitioner import (
@@ -51,8 +61,11 @@ Rules = Sequence[tuple[str, P]]
 # every data-like mesh axis the batch dim is split over
 BATCH_AXES = DATA_LIKE_AXES
 
+#: the axes a batch's tokens are split over: its rows, then its positions
+TOKEN_AXES = (*DATA_LIKE_AXES, AXIS_CONTEXT)
+
 #: the axes the port does not execute yet (ROADMAP Queue A item 8)
-UNEXECUTED_AXES = (AXIS_MODEL, AXIS_CONTEXT, AXIS_PIPELINE)
+UNEXECUTED_AXES = (AXIS_MODEL, AXIS_PIPELINE)
 
 
 def batch_pspec() -> P:
@@ -118,6 +131,26 @@ def put_process_local(x, mesh: Mesh, rank: int | None = None, dim: int = 0):
     return torch.as_tensor(x)
 
 
+def context_index(mesh: Mesh, rank: int | None = None) -> tuple[int, int]:
+    """(this rank's position on the context axis, the axis' size)."""
+    rank = _rank() if rank is None else rank
+    group = mesh.axis_ranks((AXIS_CONTEXT,), rank)
+    return group.index(rank), len(group)
+
+
+def put_sequence(x, mesh: Mesh, rank: int | None = None, dim: int = 1):
+    """This rank's chunk of the ``dim``-th (sequence) dim of rows every
+    context rank of its data index holds: positions [i·L/ctx, (i+1)·L/ctx)
+    for context index i."""
+    i, n = context_index(mesh, rank)
+    t = torch.as_tensor(x)
+    if t.shape[dim] % n:
+        raise ValueError(
+            f"sequence {t.shape[dim]} not divisible by the context axis "
+            f"size {n}")
+    return t.chunk(n, dim=dim)[i] if n > 1 else t
+
+
 class LocalBatch(tuple):
     """A batch that is this rank's rows already (``shard_batch``'s
     result): the Trainer places it as it is, as the JAX package passes an
@@ -143,6 +176,18 @@ def _rank() -> int:
 
 
 _GROUPS: dict = {}
+
+
+def context_axis_of(mesh: Mesh) -> ContextAxis | None:
+    """This rank's ``ContextAxis`` in ``mesh`` (None when the context axis
+    has one rank). Collective like ``axis_group``."""
+    if mesh.shape[AXIS_CONTEXT] == 1:
+        return None
+    rank = _rank()
+    return ContextAxis(mesh.axis_index((AXIS_CONTEXT,), rank),
+                       mesh.shape[AXIS_CONTEXT],
+                       axis_group(mesh, (AXIS_CONTEXT,)),
+                       tuple(mesh.axis_ranks((AXIS_CONTEXT,), rank)))
 
 
 def axis_group(mesh: Mesh, axes):
@@ -205,9 +250,21 @@ class GangLayout:
         self.size = data_index(mesh, self.rank)[1]
         fs, ep = mesh.shape[AXIS_FSDP], mesh.shape[AXIS_EXPERT]
         self.fsdp_size, self.ep = fs, ep
+        self.context = mesh.shape[AXIS_CONTEXT]
+        if self.context > 1 and any(isinstance(m, MoeMlp)
+                                    for m in model.modules()):
+            raise NotImplementedError(
+                "MoE layers under a context axis: expert dispatch over a "
+                "sequence split across ranks is ROADMAP Queue A item 8")
         if mesh.size > 1:
             mesh.device_mesh  # noqa: B018 (every rank makes its groups)
         self.data_group = axis_group(mesh, BATCH_AXES)
+        self.context_group = axis_group(mesh, (AXIS_CONTEXT,))
+        self.token_group = (self.data_group if self.context == 1
+                            else axis_group(mesh, TOKEN_AXES))
+        #: what ring and Ulysses attention exchange over (the Trainer
+        #: enters it around its steps); None on a context axis of one
+        self.context_axis = context_axis_of(mesh)
         table = flax_layout(model)
         self.params: dict[str, ParamLayout] = {}
         for name, p in model.named_parameters():
@@ -226,7 +283,7 @@ class GangLayout:
             covered = {AXIS_FSDP} if fsdp_dim is not None else set()
             if expert:
                 covered.add(AXIS_EXPERT)
-            reduce_axes = tuple(a for a in BATCH_AXES if a not in covered
+            reduce_axes = tuple(a for a in TOKEN_AXES if a not in covered
                                 and mesh.shape[a] > 1)
             self.params[name] = ParamLayout(spec, fsdp_dim, expert,
                                             reduce_axes)
@@ -276,14 +333,21 @@ class GangLayout:
     def sharded(self) -> bool:
         return self.fsdp_size > 1
 
+    @property
+    def gang(self) -> bool:
+        """Whether a step has ranks to reduce over: more than one on the
+        data-like axes or on the context axis."""
+        return self.size > 1 or self.context > 1
+
     # ------------------------------------------------------ the step
 
     @torch.no_grad()
     def sync_grads(self, model: torch.nn.Module) -> None:
         """Make every gradient the gang objective's: all-reduce the local
-        gradients over their groups (one flat buffer a group) and divide
-        by the data-like extent (FSDP2 has averaged its own axis)."""
-        if self.size == 1:
+        gradients over their groups (one flat buffer a group; the context
+        ranks' contributions are summed) and divide by the data-like
+        extent (FSDP2 has averaged its own axis)."""
+        if not self.gang:
             return
         from torch._utils import (
             _flatten_dense_tensors,
@@ -313,7 +377,9 @@ class GangLayout:
 
     def grad_norm(self, model: torch.nn.Module) -> torch.Tensor:
         """The global norm of the gang's gradients: each local shard's
-        squares counted once across the ranks that hold it."""
+        squares counted once across the ranks that hold it (the context
+        ranks hold the same gradients after ``sync_grads``, so the sum runs
+        over the data-like ranks only)."""
         import torch.distributed as dist
 
         total = None
@@ -330,24 +396,27 @@ class GangLayout:
             dist.all_reduce(total, group=self.data_group)
         return total.sqrt()
 
-    def mean(self, value: torch.Tensor) -> torch.Tensor:
-        """A per-rank metric's mean over the data-like ranks."""
-        if self.data_group is None:
+    def _group(self, over: str):
+        return {"data": (self.data_group, self.size),
+                "context": (self.context_group, self.context),
+                "tokens": (self.token_group, self.size * self.context)}[over]
+
+    def mean(self, value: torch.Tensor, over: str = "data") -> torch.Tensor:
+        """A per-rank metric's mean over the data-like ranks (``over=
+        "context"``: the context ranks; ``"tokens"``: both)."""
+        group, n = self._group(over)
+        return value if group is None else self.sum(value, over) / n
+
+    def sum(self, value: torch.Tensor, over: str = "data") -> torch.Tensor:
+        """A per-rank count's sum over the data-like ranks (``over`` as in
+        ``mean``)."""
+        group, _ = self._group(over)
+        if group is None:
             return value
         import torch.distributed as dist
 
         value = value.clone()
-        dist.all_reduce(value, group=self.data_group)
-        return value / self.size
-
-    def sum(self, value: torch.Tensor) -> torch.Tensor:
-        """A per-rank count's sum over the data-like ranks."""
-        if self.data_group is None:
-            return value
-        import torch.distributed as dist
-
-        value = value.clone()
-        dist.all_reduce(value, group=self.data_group)
+        dist.all_reduce(value, group=group)
         return value
 
     # ------------------------------------------------------ checkpoints
@@ -451,14 +520,14 @@ def refuse_unexecuted(sizes: dict) -> None:
         if sizes[a] != 1:
             raise NotImplementedError(
                 f"mesh axis {a!r} of size {sizes[a]}: only the data, "
-                "fsdp and expert axes are executed; tensor, context and "
+                "fsdp, expert and context axes are executed; tensor and "
                 "pipeline parallelism are ROADMAP Queue A item 8")
 
 
 __all__ = [
-    "AXIS_DATA", "BATCH_AXES", "GangLayout", "LocalBatch", "axis_group",
-    "batch_pspec",
+    "AXIS_DATA", "BATCH_AXES", "GangLayout", "LocalBatch", "TOKEN_AXES",
+    "axis_group", "batch_pspec", "context_axis_of", "context_index",
     "data_index", "fsdp_param_pspec", "param_shardings", "put_global",
-    "put_process_local", "refuse_unexecuted", "shard_batch",
+    "put_process_local", "put_sequence", "refuse_unexecuted", "shard_batch",
     "stacked_batch_pspec", "state_pspec", "state_shardings",
 ]

@@ -209,28 +209,15 @@ def to_device(batch, device: torch.device):
     return tuple(out)
 
 
-def prefetch_to_device(it: Iterator, device: torch.device,
-                       size: int = 2, mesh=None,
-                       process_local: bool = False) -> Iterator:
+def prefetch_to_device(it: Iterator, transform, size: int = 2) -> Iterator:
     """Double-buffering host->device prefetch: the copy of the next batch
     is enqueued before the current one is handed over, so it overlaps the
-    step (``size=2`` is classic double buffering). With a gang's ``mesh``
-    only this rank's rows are copied (``parallel/sharding.shard_batch``:
-    the global batch split over the data-like axes, or with
-    ``process_local`` the process's own rows as they are)."""
+    step (``size=2`` is classic double buffering). ``transform`` takes a
+    host batch to its part on the device (``to_device``'s copy, or the
+    Trainer's ``_upload``: a gang member's rows and tokens)."""
     buf: deque = deque()
     for b in it:
-        if mesh is not None:
-            from kubeflow_tpu_torch.parallel.sharding import (
-                LocalBatch,
-                shard_batch,
-            )
-
-            b = LocalBatch(to_device(shard_batch(b, mesh, process_local),
-                                     device))
-        else:
-            b = to_device(b, device)
-        buf.append(b)
+        buf.append(transform(b))
         if len(buf) >= size:
             yield buf.popleft()
     while buf:
@@ -394,13 +381,18 @@ def save_dataset_shards(ds: Dataset, out_dir: str, num_shards: int = 8) -> str:
 
 
 def load_dataset_shards(data_dir: str, process_id: int | None = None,
-                        num_processes: int | None = None) -> Dataset:
+                        num_processes: int | None = None,
+                        mesh=None) -> Dataset:
     """Load a sharded dataset, taking only THIS process's shard files
     (round-robin by index) in a gang, each process a disjoint subset.
     Defaults to the live ``torch.distributed`` gang's rank and size; (0,
-    1) outside one. Every process ends with the same row count (the
-    smallest share), so the gang's step counts stay in lockstep. The test
-    split is replicated to every process."""
+    1) outside one. With the gang's ``mesh`` (a ``MeshConfig`` or
+    ``parallel.mesh.Mesh``) they default to this rank's position in the
+    batch split and the split's size instead, so the context ranks of one
+    data index, which split the same rows' positions, take the same files.
+    Every process ends with the same row count (the smallest share), so
+    the gang's step counts stay in lockstep. The test split is replicated
+    to every process."""
     import json
 
     if (process_id is None) != (num_processes is None):
@@ -408,6 +400,12 @@ def load_dataset_shards(data_dir: str, process_id: int | None = None,
             "pass BOTH process_id and num_processes, or neither (the live "
             "torch.distributed gang)"
         )
+    if process_id is None and mesh is not None:
+        from kubeflow_tpu_torch.parallel.mesh import Mesh, build_mesh
+        from kubeflow_tpu_torch.parallel.sharding import data_index
+
+        process_id, num_processes = data_index(
+            mesh if isinstance(mesh, Mesh) else build_mesh(mesh))
     if process_id is None:
         import torch.distributed as dist
 

@@ -24,7 +24,8 @@ and MLP kernels train (Hu et al. 2021). As in the JAX package:
     grad, so those two have no twin.
 
 Pipeline-stacked kernels (the JAX package's ``stages/`` layout) wait for
-the parallelism slice (ROADMAP Queue A item 8).
+the pipeline axis (ROADMAP Queue A item 8). A context axis trains the
+models themselves (their ``shards_sequence``), not a LoraModel over them.
 
 Usage:
     lora = LoraModel(GPTLM(cfg), rank=8, generator=torch.Generator()

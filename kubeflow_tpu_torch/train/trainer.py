@@ -45,13 +45,20 @@ a ``torch.distributed`` gang, ``runtime.initialize_from_env``) the step is
 the JAX package's sharded step: each rank computes the rows of the global
 batch the data-like axes (data, fsdp, expert) give it (``data_placement=
 "replicated"``: every process holds the whole batch; ``"process_local"``:
-each holds only its own rows, ``train/data.load_dataset_shards``), and
-``parallel/sharding.GangLayout`` places the parameters by the partitioner's
-specs — FSDP2 over ``fsdp``, the stacked experts over ``expert`` — and
-reduces the gradients over the data-like ranks. The logged loss and
-accuracy are the gang's means. Auxiliary losses a model sows (the MoE
-load balance, ``parallel/moe.collect_losses``) are added to the objective,
-as the JAX Trainer adds its ``losses`` collection.
+each holds only its own rows, ``train/data.load_dataset_shards``) and,
+under a context axis, its chunk of every row's positions (a model with
+ring or Ulysses attention, whose exchange the step enters:
+``parallel.mesh.context_axis``); ``parallel/sharding.GangLayout`` places
+the parameters by the partitioner's specs — FSDP2 over ``fsdp``, the
+stacked experts over ``expert`` — and reduces the gradients over the
+data-like and context ranks. The gang trains the JAX package's objective,
+the loss of the global batch: a weighted token loss (``causal_lm_loss``,
+``masked_lm_loss``: ``train/losses.py``) has its weights counted over the
+gang before the backward, and each rank backpropagates its own sum over
+that count; the logged loss and accuracy are the global batch's.
+Auxiliary losses a model sows (the MoE load balance,
+``parallel/moe.collect_losses``) are added to the objective, as the JAX
+Trainer adds its ``losses`` collection.
 
 What ``fit`` cannot honour yet raises NotImplementedError naming its
 ROADMAP entry; it is never silently ignored.
@@ -59,6 +66,7 @@ ROADMAP entry; it is never silently ignored.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import math
 import os
@@ -83,13 +91,19 @@ from kubeflow_tpu_torch.models.layers import (
     DropoutSeeds,
     as_torch_dtype,
 )
-from kubeflow_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
+from kubeflow_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshConfig,
+    build_mesh,
+    context_axis,
+)
 from kubeflow_tpu_torch.parallel.moe import collect_losses
 from kubeflow_tpu_torch.parallel.partitioner import Partitioner
 from kubeflow_tpu_torch.parallel.sharding import (
     GangLayout,
     LocalBatch,
     local_tensor,
+    put_sequence,
     refuse_unexecuted,
     shard_batch,
 )
@@ -169,7 +183,8 @@ class TrainerConfig:
     checkpoint_every_steps: int = 200
     log_every_steps: int = 50
     # None = one process; a MeshConfig (or a parallel.mesh.Mesh) lays the
-    # gang's ranks over the named axes (data, fsdp and expert execute)
+    # gang's ranks over the named axes (data, fsdp, expert and context
+    # execute)
     mesh: MeshConfig | Mesh | None = None
     # torch.profiler Chrome trace of fit; "" defers to KFTPU_PROFILE_DIR
     profile_dir: str = ""
@@ -204,7 +219,7 @@ class TrainerConfig:
 
 def _refuse_unported(c: TrainerConfig) -> None:
     """Raise for every TrainerConfig value the port cannot honour yet: a
-    mesh axis it does not execute (model, context, pipeline)."""
+    mesh axis it does not execute (model, pipeline)."""
     if c.data_placement not in ("replicated", "process_local"):
         raise ValueError(f"data_placement {c.data_placement!r} is not "
                          "replicated|process_local")
@@ -307,9 +322,32 @@ class Trainer:
                     "fused_steps > 1 under an fsdp axis above 1 on the card:"
                     " FSDP2's collectives are not captured in a CUDA graph "
                     "(ROADMAP Queue A item 3)")
+            if self.layout.context > 1:
+                if not getattr(self.model, "shards_sequence", False):
+                    raise NotImplementedError(
+                        f"a context axis of {self.layout.context} splits "
+                        "every sequence: the model must attend with ring or "
+                        "ulysses attention (GPTLM and the BERT models with "
+                        "attention='ring'|'ulysses')")
+                if config.fused_steps > 1 and self.device.type == "cuda":
+                    raise NotImplementedError(
+                        "fused_steps > 1 under a context axis above 1 on the"
+                        " card: the ring's P2P exchanges are not proven "
+                        "inside a CUDA graph, which one card cannot show "
+                        "(ROADMAP Queue A item 3)")
         self.loss_fn = loss_fn
         # per-example (loss, accuracy) for eval AND the train-step accuracy
         self.eval_metrics_fn = eval_metrics_fn or classification_eval_metrics
+        #: the loss' (sum, count) form (train/losses.py), which a gang reduces
+        self._weighted = getattr(loss_fn, "weighted", None)
+        if (self._gang and self._weighted is not None and getattr(
+                self.eval_metrics_fn, "weighted", None) is not self._weighted):
+            raise ValueError(
+                "a weighted token loss under a gang takes the eval metrics "
+                "of the same weighted form (causal_lm_loss with "
+                "causal_lm_eval_metrics, masked_lm_loss with "
+                "masked_lm_eval_metrics): the gang counts both over its "
+                "ranks")
         params = inspect.signature(self.model.forward).parameters
         self._accepts_train = "train" in params
         self._accepts_generator = "generator" in params
@@ -424,6 +462,20 @@ class Trainer:
     def _process_local(self) -> bool:
         return self.config.data_placement == "process_local"
 
+    @property
+    def _gang(self) -> bool:
+        """Whether a step reduces over other ranks (data-like or context)."""
+        return self.layout is not None and self.layout.gang
+
+    def _context(self):
+        """The gang's context axis entered (nothing without one): ring and
+        Ulysses attention exchange over it, the models number positions
+        from it. Around the forward, the loss and the backward; remat
+        carries the axis into its recompute itself (``layers.remat``)."""
+        axis = None if self.layout is None else self.layout.context_axis
+        return context_axis(axis) if axis is not None \
+            else contextlib.nullcontext()
+
     def _per_process_batch(self) -> int:
         """Rows a process feeds a step: all of them, or its own share under
         process_local."""
@@ -431,12 +483,30 @@ class Trainer:
         return self.config.batch_size // (n if self._process_local else 1)
 
     def _local(self, batch, stacked: bool = False):
-        """This rank's rows of a host batch (the batch dim split over the
-        data-like axes; taken as they are under process_local); a
-        ``LocalBatch`` is this rank's already."""
-        if self.layout is None or self.layout.size == 1:
+        """This rank's part of a host batch: its rows (the batch dim split
+        over the data-like axes; taken as they are under process_local),
+        then its tokens (``_tokens``); a ``LocalBatch`` is this rank's
+        already."""
+        if not self._gang or isinstance(batch, LocalBatch):
             return batch
-        return shard_batch(batch, self.mesh, self._process_local, stacked)
+        rows = shard_batch(batch, self.mesh, self._process_local, stacked)
+        return self._tokens(rows, 2 if stacked else 1)
+
+    def _tokens(self, batch, dim: int) -> LocalBatch:
+        """Rows (x, y, ...) as this rank's tokens: a weighted loss' labels
+        aligned to their positions over the whole sequence (the causal
+        shift happens before the split), then under a context axis x and
+        per-position labels cut to this rank's chunk of positions
+        (``dim`` the sequence dim)."""
+        x, y, *rest = (torch.as_tensor(a) for a in batch)
+        per_position = y.ndim > dim and y.shape[dim] == x.shape[dim]
+        if self._weighted is not None:
+            y = self._weighted.align(y, dim)
+        if self.layout.context > 1:
+            x = put_sequence(x, self.mesh, dim=dim)
+            if per_position:
+                y = put_sequence(y, self.mesh, dim=dim)
+        return LocalBatch((x, y, *rest))
 
     def _upload(self, batch):
         """A host batch's rows for this rank, on the device."""
@@ -500,30 +570,38 @@ class Trainer:
         opt.zero_grad(set_to_none=True)
         gen = seeds if seeds is not None else DropoutSeeds(
             self._step_seeds(state.step))
+        gang = self._gang
         loss_sum = acc_sum = 0.0
-        for mx, my in zip(x.chunk(n_acc), y.chunk(n_acc)):
-            with collect_losses() as sown:
-                logits = self._apply(state.model, mx, gen, True).float()
-            loss = self.loss_fn(logits, my)
-            if sown:  # the model's sown aux losses join the objective
-                loss = loss + sum(a.float() for a in sown)
-            loss.backward()
-            with torch.no_grad():
-                acc = self.eval_metrics_fn(logits.detach(), my)[1].mean()
-            loss_sum = loss_sum + loss.detach()
-            acc_sum = acc_sum + acc
+        with self._context():
+            for mx, my in zip(x.chunk(n_acc), y.chunk(n_acc)):
+                with collect_losses() as sown:
+                    logits = self._apply(state.model, mx, gen, True).float()
+                # the model's sown aux losses join the objective
+                aux = sum(a.float() for a in sown) if sown else None
+                if gang:
+                    loss, acc = self._gang_backward(logits, my, aux)
+                else:
+                    loss = self.loss_fn(logits, my)
+                    if aux is not None:
+                        loss = loss + aux
+                    loss.backward()
+                    with torch.no_grad():
+                        acc = self.eval_metrics_fn(logits.detach(),
+                                                   my)[1].mean()
+                loss_sum = loss_sum + loss.detach()
+                acc_sum = acc_sum + acc
         params = [p for g in opt.param_groups for p in g["params"]
                   if p.grad is not None]
         grads = [local_tensor(p.grad) for p in params]
         if n_acc > 1:  # the mean of the microbatch grads
             for g in grads:
                 g.div_(n_acc)
-        gang = self.layout is not None and self.layout.size > 1
         if gang:
             self.layout.sync_grads(state.model)
             grad_norm = self.layout.grad_norm(state.model)
-            loss_sum = self.layout.mean(loss_sum)
-            acc_sum = self.layout.mean(acc_sum)
+            # the global batch's loss and accuracy: every rank's share
+            loss_sum, acc_sum = self.layout.mean(
+                torch.stack([loss_sum, acc_sum]), "tokens").unbind(0)
         else:
             grad_norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g.float())
@@ -537,6 +615,42 @@ class Trainer:
         state.step += 1
         return state, {"loss": loss_sum / n_acc, "accuracy": acc_sum / n_acc,
                        "grad_norm": grad_norm}
+
+    def _gang_backward(self, logits, labels, aux):
+        """A gang member's backward of the global batch's objective: (its
+        share of the logged loss, of the accuracy), whose mean over the
+        gang's data-like and context ranks is the global batch's.
+
+        A weighted token loss' count is summed over the gang first; the
+        member backpropagates its own sum times the data-like extent over
+        that count, which ``sync_grads``' sum and division turn into the
+        gradient of the global weighted mean. The accuracy is the mean over
+        rows of each row's weighted hits, counted over its context ranks.
+        Any other loss is each member's own over the context extent (its
+        rows weigh as every other member's)."""
+        lay = self.layout
+        if self._weighted is None:
+            loss = self.loss_fn(logits, labels)
+            if aux is not None:
+                loss = loss + aux
+            (loss / lay.context if lay.context > 1 else loss).backward()
+            with torch.no_grad():
+                acc = self.eval_metrics_fn(logits.detach(), labels)[1].mean()
+            return loss, acc
+        num, hits, w = self._weighted.sums(logits, labels)
+        total = num.sum()
+        count = lay.sum(w.sum().detach(), "tokens").clamp_min(1.0)
+        loss = total * (lay.size / count)
+        if aux is not None:
+            loss = loss + aux
+        loss.backward()
+        with torch.no_grad():
+            hw = torch.stack([hits, w])
+            if lay.context > 1:
+                hw = lay.sum(hw, "context")
+            acc = (hw[0] / hw[1].clamp_min(1.0)).mean()
+            share = total.detach() * (lay.size * lay.context) / count
+        return (share if aux is None else share + aux.detach()), acc
 
     # -------------------------------------------------------- fused steps
 
@@ -684,7 +798,7 @@ class Trainer:
         is every rank's) and the sums are the gang's."""
         c = self.config
         bs = min(c.batch_size, len(dataset.x_test))
-        gang = self.layout is not None and self.layout.size > 1
+        gang = self._gang
         sums = torch.zeros(3, dtype=torch.float64, device=self.device)
         for bx, by in batches(dataset.x_test, dataset.y_test, bs,
                               drop_remainder=False):
@@ -696,11 +810,13 @@ class Trainer:
                 by = np.concatenate(
                     [by, np.zeros((pad, *by.shape[1:]), by.dtype)])
             batch = (bx, by, (np.arange(bs) < n).astype(np.float32))
-            x, y, wt = to_device(shard_batch(batch, self.mesh) if gang
-                                 else batch, self.device)
-            logits = self._apply(state.model, self._cast(x), None,
-                                 False).float()
-            per_ex, acc = self.eval_metrics_fn(logits, y)
+            if gang:  # the test split is every rank's: its rows' tokens
+                batch = self._tokens(shard_batch(batch, self.mesh), 1)
+            x, y, wt = to_device(batch, self.device)
+            with self._context():
+                logits = self._apply(state.model, self._cast(x), None,
+                                     False).float()
+            per_ex, acc = self._eval_rows(logits, y)
             sums += torch.stack([(per_ex * wt).sum(), (acc * wt).sum(),
                                  wt.sum()]).double()
         if gang:
@@ -708,6 +824,26 @@ class Trainer:
         loss, correct, count = sums.tolist()
         return {"loss": loss / max(count, 1.0),
                 "accuracy": correct / max(count, 1.0)}
+
+    def _eval_rows(self, logits, labels):
+        """Per-example (loss, accuracy) of this rank's rows. Under a
+        context axis a row's positions lie on its context ranks: a weighted
+        form's sums are added over them, any other per-example value is
+        their mean."""
+        lay = self.layout
+        if lay is None or not lay.gang:
+            return self.eval_metrics_fn(logits, labels)
+        if self._weighted is not None:
+            parts = torch.stack(self._weighted.sums(logits, labels))
+            if lay.context > 1:
+                parts = lay.sum(parts, "context")
+            num, hits, w = parts.unbind(0)
+            return num / w.clamp_min(1.0), hits / w.clamp_min(1.0)
+        per_ex, acc = self.eval_metrics_fn(logits, labels)
+        if lay.context > 1:
+            per_ex, acc = lay.mean(torch.stack([per_ex, acc]),
+                                   "context").unbind(0)
+        return per_ex, acc
 
     # ---------------------------------------------------------- warm start
 
@@ -946,9 +1082,7 @@ class Trainer:
                     loader = AsyncLoader(raw, transform=self._upload, size=2)
                     batch_src = loader
                 else:
-                    batch_src = prefetch_to_device(
-                        raw, self.device, mesh=self.mesh,
-                        process_local=self._process_local)
+                    batch_src = prefetch_to_device(raw, self._upload)
                 if tracer.enabled:
                     batch_src = _traced_data_iter(tracer, batch_src,
                                                   stats_from=loader)

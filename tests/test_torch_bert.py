@@ -218,9 +218,21 @@ def test_refusals_and_config():
     # the MoE encoder builds (tests/test_torch_moe.py)
     assert tb.BertEncoder(tb.BertConfig.tiny(moe_experts=4),
                           device="cpu").layer_0.moe.num_experts == 4
+    # ring and Ulysses build and shard the sequence over an entered
+    # context axis (tests/test_torch_context.py), where dense and flash
+    # attention are refused
+    from kubeflow_tpu_torch.parallel.mesh import ContextAxis, context_axis
+
     for kind in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tb.BertEncoder(tb.BertConfig.tiny(attention=kind), device="cpu")
+        assert tb.BertEncoder(tb.BertConfig.tiny(attention=kind),
+                              device="cpu").shards_sequence
+    for kind in ("dense", "flash"):
+        model = tb.BertEncoder(tb.BertConfig.tiny(attention=kind),
+                               device="cpu")
+        assert not model.shards_sequence
+        with context_axis(ContextAxis(0, 2, None, (0, 1))), \
+                pytest.raises(NotImplementedError, match="ring and ulysses"):
+            model(torch.ones((1, 4), dtype=torch.long))
     with pytest.raises(ValueError, match="not divisible"):
         tb.BertConfig(hidden_size=100, num_heads=12)
     assert tb.BertConfig.base() == tb.BertConfig()

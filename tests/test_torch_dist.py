@@ -7,7 +7,10 @@ the DistContext, the heartbeat's rendezvous beats and the ``rendezvous``
 span; ``data=2`` and ``fsdp=2`` fits of a tiny GPT equal to one process
 on the global batch (losses and grad norms 1e-5, parameters 1e-4), their
 losses and grad norms within 1e-4 of the JAX Trainer on a virtual CPU
-mesh of the same shape;
+mesh of the same shape; ``data=2`` fits under the two weighted token
+losses (BERT-tiny MLM, GPT-tiny with pad rows), whose ranks' counts
+differ, equal to the JAX Trainer's loss over the global batch (1e-4) and
+one process's (1e-5), where the mean of the ranks' own losses is not;
 a ``process_local`` fit over per-process
 shard files equal to the replicated fit; a gang (fsdp=2) checkpoint
 restored on one process bit for bit, and a one-process checkpoint
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from kubeflow_tpu_torch import health
+from kubeflow_tpu_torch.models import bert as tb
 from kubeflow_tpu_torch.models import gpt as tg
 from kubeflow_tpu_torch.parallel.mesh import MeshConfig
 from kubeflow_tpu_torch.runtime import distributed as rd
@@ -89,6 +93,44 @@ def full_state(state) -> dict:
             "step": sd["step"]}
 
 
+#: the weighted token losses' fits: BERT-tiny MLM, GPT-tiny with pad rows
+WEIGHTED = ("mlm", "pad")
+
+
+def weighted_trainer(name, mesh=None):
+    if name == "mlm":
+        model = tb.BertForMaskedLM(tb.BertConfig.tiny(
+            vocab_size=256, max_len=16, dropout_rate=0.0), device="cpu")
+        fns = dict(loss_fn=tb.masked_lm_loss,
+                   eval_metrics_fn=tb.masked_lm_eval_metrics)
+        model.init_weights(torch.Generator().manual_seed(0))
+    else:
+        model = tiny_gpt()
+        fns = dict(loss_fn=tg.causal_lm_loss,
+                   eval_metrics_fn=tg.causal_lm_eval_metrics)
+    return tt.Trainer(model, tt.TrainerConfig(
+        batch_size=BATCH, steps=STEPS, log_every_steps=1, mesh=mesh), **fns)
+
+
+def weighted_batches(name):
+    """MLM: synthetic_text_dataset's padded rows masked by
+    mask_tokens_for_mlm. pad: synthetic_lm_dataset's rows, three of each
+    batch's eight cut short by pad ids."""
+    if name == "mlm":
+        ds = td.synthetic_text_dataset(n_train=BATCH * STEPS, n_test=4,
+                                       seq_len=16, vocab_size=255)
+        x, y = td.mask_tokens_for_mlm(ds.x_train, 255, 255, seed=2)
+    else:
+        x = td.synthetic_lm_dataset(**DATA).x_train[:BATCH * STEPS].copy()
+        rng = np.random.RandomState(7)
+        for i in range(STEPS):
+            for r in rng.choice(BATCH, 3, replace=False):
+                x[i * BATCH + r, rng.randint(2, 8):] = 0
+        y = x.copy()
+    return [(x[i * BATCH:(i + 1) * BATCH], y[i * BATCH:(i + 1) * BATCH])
+            for i in range(STEPS)]
+
+
 def local_batches(shard_dir, rank, world):
     ds = td.load_dataset_shards(shard_dir, rank, world)
     return list(td.batches(ds.x_train, ds.y_train, BATCH // world, seed=0))
@@ -122,6 +164,9 @@ def gang_main(out, rank):
         trainer = gpt_trainer(mesh)
         state, losses = stepped(trainer, global_batches())
         out_res[name] = (losses, full_state(state))
+    for name in WEIGHTED:
+        trainer = weighted_trainer(name, MeshConfig(data=2))
+        out_res[name] = stepped(trainer, weighted_batches(name))[1]
     # process_local: each rank's own shard files, batch BATCH / 2
     trainer = gpt_trainer(MeshConfig(data=2),
                           data_placement="process_local", async_loader=False)
@@ -221,6 +266,58 @@ def test_gang_fit_matches_jax_mesh(gang, axis, cpu_devices):
     _, want = stepped(jtr, global_batches(), jax_state(jtr, flat))
     for res in results:
         np.testing.assert_allclose(res[axis][0], want, **JAX_TOL)
+
+
+@pytest.mark.parametrize("name", WEIGHTED)
+def test_weighted_loss_gang_matches_jax_global_loss(gang, cpu_devices, name):
+    """A data=2 gang under a weighted token loss trains the JAX package's
+    objective, the loss of the global batch: 3 steps' losses and grad
+    norms within 1e-4 of the JAX Trainer on a 2-device virtual mesh and
+    1e-5 of one process. The ranks' counts differ, so the mean of the
+    ranks' own losses (the objective before the repair) misses the
+    global loss by more than that tolerance."""
+    from kubeflow_tpu.models import bert as jb
+    from kubeflow_tpu.models import gpt as jg
+    from kubeflow_tpu.parallel import MeshConfig as JMesh, build_mesh
+    from kubeflow_tpu.train import trainer as jt
+    from kubeflow_tpu_torch.convert import flax_params_from, \
+        flax_params_from_gpt
+    from tests.test_torch_moe import jax_state
+
+    _, results, _ = gang
+    batches = weighted_batches(name)
+    one = weighted_trainer(name)
+    model = one.model
+    if name == "mlm":
+        flat = flax_params_from(model.state_dict())
+        jmodel = jb.BertForMaskedLM(jb.BertConfig.tiny(
+            vocab_size=256, max_len=16, dropout_rate=0.0))
+        fns = dict(loss_fn=jb.masked_lm_loss,
+                   eval_metrics_fn=jb.masked_lm_eval_metrics)
+        counts = [int((y != td.IGNORE_LABEL).sum()) for y in
+                  np.split(batches[0][1], 2)]
+    else:
+        flat = flax_params_from_gpt(model.state_dict(), model.cfg)
+        jmodel = jg.GPTLM(jg.GPTConfig.tiny(**TINY))
+        fns = dict(loss_fn=jg.causal_lm_loss,
+                   eval_metrics_fn=jg.causal_lm_eval_metrics)
+        counts = [int((y[:, 1:] != 0).sum()) for y in
+                  np.split(batches[0][1], 2)]
+    assert counts[0] != counts[1], counts
+    with torch.no_grad():  # the ranks' own losses at the first step
+        own = [float(one.loss_fn(model(torch.from_numpy(x)),
+                                 torch.from_numpy(y)))
+               for x, y in zip(np.split(batches[0][0], 2),
+                               np.split(batches[0][1], 2))]
+    jtr = jt.Trainer(jmodel, jt.TrainerConfig(batch_size=BATCH, steps=STEPS),
+                     mesh=build_mesh(JMesh(data=2), cpu_devices[:2]), **fns)
+    _, want = stepped(jtr, batches, jax_state(jtr, flat))
+    _, single = stepped(one, batches)
+    assert abs(np.mean(own) - want[0][0]) > JAX_TOL["atol"], (own, want)
+    np.testing.assert_allclose(single, want, **JAX_TOL)
+    for res in results:
+        np.testing.assert_allclose(res[name], want, **JAX_TOL)
+        np.testing.assert_allclose(res[name], single, **TOL)
 
 
 def test_gang_process_local_equals_replicated(gang):

@@ -7,10 +7,14 @@ chip_smoke.py phase 12), is held here against an independent Philox4x32-10
 written with numpy uint32 arithmetic and against Random123's known-answer
 vectors. The masks are functions of (seed, step) in the Trainer, so a
 resumed fit and a fused-steps fit draw the masks of the uninterrupted
-per-step fit. The JAX package draws its masks with jax.random, so the two
-packages' masks differ and are held by statistics (test_torch_bert.py,
-test_torch_train.py, test_torch_vision.py).
+per-step fit; a block under remat recomputes under its forward's context
+axis, whatever thread runs the backward. The JAX package draws its masks
+with jax.random, so the two packages' masks differ and are held by
+statistics (test_torch_bert.py, test_torch_train.py,
+test_torch_vision.py).
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -219,3 +223,47 @@ def test_remat_step_equals_plain_step():
     assert out[0][0] == out[1][0]
     for k, v in out[0][1].items():
         torch.testing.assert_close(out[1][1][k], v, atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_remat_recomputes_under_the_forwards_context_axis(device):
+    """A block under remat recomputes with the context axis its forward
+    saw, also where the backward runs on a thread that sees none of the
+    caller's context variables: on the card autograd's device thread, on
+    the CPU a fresh thread (whose context is empty)."""
+    from kubeflow_tpu_torch.parallel.mesh import ContextAxis, \
+        context_axis, current_context_axis
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: autograd's device thread")
+    seen, errors = [], []
+
+    class Probe(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(3, device=device))
+
+        def forward(self, x):
+            seen.append(current_context_axis())
+            return (x * self.w).sin()
+
+    def backward(loss):
+        try:
+            loss.backward()
+        except Exception as e:  # reported below, on the test's thread
+            errors.append(e)
+
+    axis = ContextAxis(1, 2, None, (0, 1))
+    x = torch.ones(3, device=device, requires_grad=True)
+    with context_axis(axis):
+        loss = tlayers.remat(Probe(), x).sum()
+    if device == "cuda":
+        backward(loss)
+    else:
+        t = threading.Thread(target=backward, args=(loss,))
+        t.start()
+        t.join()
+    assert not errors, errors
+    assert seen == [axis, axis]
+    torch.testing.assert_close(x.grad.cpu(), torch.ones(3).cos())

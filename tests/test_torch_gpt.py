@@ -111,12 +111,25 @@ def test_port_only_refusals():
     with pytest.raises(ValueError, match="dtype"):
         tg.GPTConfig.tiny(dtype="float16")
     # the MoE decoder builds (tests/test_torch_moe.py); ring and Ulysses
-    # shard the sequence over the context axis, which is not executed
+    # build and shard the sequence over an entered context axis
+    # (tests/test_torch_context.py), where dense and flash attention are
+    # refused
+    from kubeflow_tpu_torch.parallel import ring_attention as tra
+    from kubeflow_tpu_torch.parallel.mesh import ContextAxis, context_axis
+
     assert tg.GPTLM(tg.GPTConfig.tiny(moe_experts=2), device="cpu").layers[
         0].moe.num_experts == 2
     for kind in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tg.GPTLM(tg.GPTConfig.tiny(attention=kind), device="cpu")
+        model = tg.GPTLM(tg.GPTConfig.tiny(attention=kind), device="cpu")
+        assert model.shards_sequence
+        assert model.layers[0].attention.attn_fn is getattr(
+            tra, f"{kind}_attention")
+    for kind in ("dense", "flash"):
+        model = tg.GPTLM(tg.GPTConfig.tiny(attention=kind), device="cpu")
+        assert not model.shards_sequence
+        with context_axis(ContextAxis(0, 2, None, (0, 1))), \
+                pytest.raises(NotImplementedError, match="ring and ulysses"):
+            model(torch.ones((1, 4), dtype=torch.long))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tg.GPTLM(tg.GPTConfig.tiny())  # entry points default to the card
 

@@ -46,7 +46,8 @@ def test_port_files_exist():
                 "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/partitioner.py", "parallel/sharding.py",
                 "parallel/moe.py", "runtime/__init__.py",
-                "runtime/distributed.py"):
+                "runtime/distributed.py", "parallel/ring_attention.py",
+                "train/losses.py"):
         assert ROOT / "kubeflow_tpu_torch" / rel in FILES, rel
 
 

@@ -322,3 +322,37 @@ def test_dropout_kernels_bit_equal_plain_on_card(dtype):
         kd.dropout_fwd(x.detach().transpose(0, 1), seeds[0], 0.1)
     with pytest.raises(ValueError, match="int64"):
         kd.dropout_fwd(x.detach(), seeds[:1].float(), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_span_is_the_whole_tensors_mask_on_card(dtype):
+    """A context rank's slice of L/ctx positions (``span``): dropout_fwd
+    and dropout_bwd on the slice equal the whole (4, 2048, 768) tensor's
+    outputs there bit for bit, and the plain version's; a layout the
+    kernel cannot take (a row or offset not a multiple of 4) is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from kubeflow_tpu_torch.kernels import dropout as kd
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seed = torch.tensor(2**45 + 3, dtype=torch.int64, device="cuda")
+    x = torch.randn((4, 2048, 768), generator=gen, device="cuda").to(dtype)
+    bits = {torch.float32: torch.int32}.get(dtype, torch.int16)
+    whole = kd.dropout_fwd(x, seed, 0.1, 1)
+    whole_b = kd.dropout_bwd(x, seed, 0.1, 1)
+    for ctx in (2, 4):
+        row = (2048 // ctx) * 768
+        for i, part in enumerate(x.chunk(ctx, dim=1)):
+            span = (row, 2048 * 768, i * row)
+            got = kd.dropout_fwd(part.contiguous(), seed, 0.1, 1, span)
+            got_b = kd.dropout_bwd(part.contiguous(), seed, 0.1, 1, span)
+            plain = kd.dropout_plain(part, seed, 0.1, 1, span)
+            want = whole.chunk(ctx, dim=1)[i]
+            assert torch.equal(got.view(bits), want.view(bits))
+            assert torch.equal(got.view(bits), plain.view(bits))
+            assert torch.equal(got_b.view(bits),
+                               whole_b.chunk(ctx, dim=1)[i].view(bits))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        kd.dropout_fwd(x[:, :3].contiguous(), seed, 0.1, 1,
+                       (3 * 768, 2048 * 768, 2))

@@ -245,5 +245,17 @@ def test_placements_and_batch_split():
     assert tshard.shard_batch(part, tm) is part
     with pytest.raises(ValueError, match="not divisible"):
         tshard.put_global(torch.zeros(6), tm, rank=0)
+    # the context axis executes: each rank of a data index takes its chunk
+    # of the positions; the model axis is still refused
+    tshard.refuse_unexecuted(tmesh.MeshConfig(context=2).sizes())
+    tc = tmesh.build_mesh(tmesh.MeshConfig(data=2, context=2),
+                          devices=range(4))
+    seq = torch.arange(16).reshape(2, 8)
+    got = [(tshard.put_global(seq, tc, rank=r)[:, 0].tolist(),
+            tshard.put_sequence(seq, tc, rank=r)[0].tolist())
+           for r in range(4)]
+    assert got == [([0], [0, 1, 2, 3]), ([0], [4, 5, 6, 7]),
+                   ([8], [0, 1, 2, 3]), ([8], [4, 5, 6, 7])]
     with pytest.raises(NotImplementedError, match="item 8"):
-        tshard.refuse_unexecuted(tmesh.MeshConfig(context=2).sizes())
+        tshard.refuse_unexecuted(tmesh.MeshConfig(context=2,
+                                                  model=2).sizes())

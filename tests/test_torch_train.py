@@ -388,13 +388,14 @@ def test_fit_heartbeats_and_final_metrics(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("field,value,entry", [
     ("mesh", tmesh.MeshConfig(model=2), "item 8"),
-    ("mesh", tmesh.MeshConfig(context=2), "item 8"),
+    ("mesh", tmesh.MeshConfig(context=2, model=2), "item 8"),
     ("mesh", tmesh.MeshConfig(pipeline=2), "item 8"),
 ])
 def test_unported_config_refused(field, value, entry):
-    """The mesh axes the port does not execute are refused; the data,
-    fsdp and expert axes and data_placement="process_local" train
-    (tests/test_torch_dist.py, tests/test_torch_moe.py)."""
+    """The mesh axes the port does not execute are refused, beside the
+    context axis too; the data, fsdp, expert and context axes and
+    data_placement="process_local" train (tests/test_torch_dist.py,
+    tests/test_torch_moe.py, tests/test_torch_context.py)."""
     with pytest.raises(NotImplementedError, match=entry):
         tt.Trainer(torch_model(tiny()), tt.TrainerConfig(**{field: value}))
     with pytest.raises(ValueError, match="replicated|process_local"):

@@ -8,7 +8,10 @@ which the DNS name of the contract stands for here), starts one ``python -m
 tests.torch_gang`` process per rank, waits for both within ``timeout``
 seconds (a wedged rendezvous fails the test instead of hanging the suite)
 and returns what each rank's ``func(out_dir, rank)`` saved with
-``save_result``.
+``save_result``. Each rank runs at a niceness of ``GANG_NICE``: the suite
+shares the machine's cores with timing gates in other workers
+(tests/test_prof_gate.py, tests/test_soak.py), and a gang's burst of
+processes should not take their cores.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 GANG_TIMEOUT_S = 120.0
+GANG_NICE = 5
 
 
 def free_port() -> int:
@@ -114,6 +118,7 @@ def load_result(out_dir: Path, rank: int):
 
 
 if __name__ == "__main__":
+    os.nice(GANG_NICE)
     import torch
 
     torch.set_num_threads(1)
